@@ -1,0 +1,106 @@
+"""Boundaries of the port: tpupose_torch and chip_smoke.py import neither
+JAX nor the JAX package, and a CUDA request without CUDA raises instead
+of running on the CPU."""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _port_files():
+    return sorted((ROOT / "tpupose_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_no_tpupose(path):
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        for n in names:
+            top = n.split(".")[0]
+            assert top not in ("jax", "jaxlib", "flax", "optax", "tpupose"), \
+                f"{path.relative_to(ROOT)} imports {n}"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_cuda_request_raises_without_cuda(no_cuda):
+    from tpupose_torch import resolve_device
+    from tpupose_torch.models.simple_baseline import SimpleBaseline
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SimpleBaseline("resnet18", 4, (8,))       # default device="cuda"
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_predictor_defaults_to_cuda(no_cuda):
+    from tpupose_torch.engine.predictor import HeatmapPredictor
+    from tpupose_torch.models.simple_baseline import SimpleBaseline
+
+    m = SimpleBaseline("resnet18", 4, (8,), dtype=torch.float32,
+                       device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        HeatmapPredictor(m, (16, 16))
+    c, s = HeatmapPredictor(m, (16, 16), device="cpu")(
+        np.zeros((2, 64, 64, 3), np.uint8))
+    assert c.shape == (2, 4, 2) and s.shape == (2, 4)
+
+
+def test_server_on_cpu_coalesces():
+    """The port's PoseServer over a CPU predictor: concurrent .npy posts
+    come back with K keypoints each."""
+    import io
+    import json
+    import threading
+    import urllib.request
+
+    from tpupose_torch.engine.predictor import HeatmapPredictor
+    from tpupose_torch.engine.server import PoseServer
+    from tpupose_torch.models.simple_baseline import SimpleBaseline
+
+    g = torch.Generator().manual_seed(0)
+    m = SimpleBaseline("resnet18", 5, (8,), dtype=torch.float32,
+                       device="cpu", generator=g)
+    srv = PoseServer(HeatmapPredictor(m, (16, 16), device="cpu"), (64, 64),
+                     max_batch=4, window_ms=50)
+    srv.start_background()
+    try:
+        buf = io.BytesIO()
+        np.save(buf, np.random.RandomState(0).randint(
+            0, 256, (64, 64, 3)).astype(np.uint8))
+        body = buf.getvalue()
+        out = [None] * 4
+
+        def post(i):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{srv.port}/predict", data=body,
+                headers={"Content-Type": "application/octet-stream"})
+            with urllib.request.urlopen(req, timeout=60) as r:
+                out[i] = json.loads(r.read())
+
+        ts = [threading.Thread(target=post, args=(i,)) for i in range(4)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in ts)
+        assert all(len(o["keypoints"]) == 5 for o in out)
+        assert srv.batcher.stats()["requests"] == 4
+    finally:
+        srv.shutdown()

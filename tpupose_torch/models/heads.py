@@ -1,0 +1,37 @@
+"""Prediction heads (counterpart of tpupose/models/heads.py; HeatmapHead
+only so far).
+
+flax `ConvTranspose(4x4, stride 2, padding="SAME", transpose_kernel=False)`
+is torch `ConvTranspose2d(k=4, s=2, padding=1)` with the kernel rotated
+180 degrees in space; `tpupose_torch.utils.convert` applies the rotation
+when it carries flax weights across.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+from torch import nn
+
+
+class HeatmapHead(nn.Module):
+    """SimpleBaseline head: N x (deconv 4x4/2 + BN + ReLU), then a 1x1
+    conv with bias to K heatmap channels. The final conv runs in float32
+    (SimpleBaseline keeps `final_layer` in float32 whatever the model's
+    dtype). NCHW in and out."""
+
+    def __init__(self, in_channels: int, num_keypoints: int,
+                 deconv_channels: Sequence[int] = (256, 256, 256)):
+        super().__init__()
+        layers = []
+        c = in_channels
+        for ch in deconv_channels:
+            layers += [nn.ConvTranspose2d(c, ch, 4, 2, 1, bias=False),
+                       nn.BatchNorm2d(ch, eps=1e-5), nn.ReLU()]
+            c = ch
+        self.deconv_layers = nn.Sequential(*layers)
+        self.final_layer = nn.Conv2d(c, num_keypoints, 1)
+
+    def forward(self, x):
+        x = self.deconv_layers(x)
+        return self.final_layer(x.to(self.final_layer.weight.dtype))

@@ -1,0 +1,130 @@
+"""Fused ResNet stem (conv 7x7/2 + BN + ReLU + max-pool 3x3/2) and the
+composed R50 serving forward (counterpart of tpupose/ops/pallas_stem.py).
+
+  - `fold_stem_weights`: BatchNorm folded into the stem conv (HWIO bf16
+    weights + float32 bias), computed in float64;
+  - `stem_pool_reference`: the plain PyTorch version, in float32 with
+    the conv output rounded to the input dtype before the pool, as the
+    kernel rounds it;
+  - `stem_pool`: the wrapper of the hand-written kernel in
+    csrc/stem.cu, which replaces pallas_stem.py `_stem_kernel`. A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel or
+    raises. `stem_pool.launches` counts launches;
+  - `fast_r50_stem_apply`: stem + layer1 + block2_0 kernels, then the
+    rest of the model, as pallas_stem.py `fast_r50_stem_apply` with
+    `scales=None, bridge=True`.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from tpupose_torch.ops import _build
+
+
+@torch.no_grad()
+def fold_bn(conv: torch.nn.Module, bn: torch.nn.BatchNorm2d):
+    """Conv weight (O, I, kh, kw) and eval-mode BN -> (weight * f, bias)
+    in float64, f = gamma / sqrt(var + eps)."""
+    f = bn.weight.double() / torch.sqrt(bn.running_var.double() + bn.eps)
+    return (conv.weight.double() * f[:, None, None, None],
+            bn.bias.double() - bn.running_mean.double() * f)
+
+
+@torch.no_grad()
+def fold_stem_weights(backbone, dtype=None) -> dict:
+    """The backbone's conv1 + bn1 -> {"w": (7, 7, 3, 64) HWIO in `dtype`
+    (default: the conv's dtype), "bias": (64,) float32}."""
+    dtype = dtype or backbone.conv1.weight.dtype
+    w, b = fold_bn(backbone.conv1, backbone.bn1)
+    return {"w": w.permute(2, 3, 1, 0).contiguous().to(dtype),
+            "bias": b.float()}
+
+
+def stem_pool_reference(x: torch.Tensor, weights: dict) -> torch.Tensor:
+    """Plain version: normalized (B, H, W, 3) -> pooled (B, Hp, Wp, 64),
+    x.dtype, NHWC."""
+    xf = x.float().permute(0, 3, 1, 2)
+    wf = weights["w"].float().permute(3, 2, 0, 1)
+    y = F.conv2d(xf, wf, weights["bias"], stride=2, padding=3)
+    y = torch.relu(y).to(x.dtype).float()
+    y = F.max_pool2d(y, 3, 2, 1)
+    return y.to(x.dtype).permute(0, 2, 3, 1).contiguous()
+
+
+def stem_pool(x: torch.Tensor, weights: dict) -> torch.Tensor:
+    """(B, H, W, 3) -> (B, Hp, Wp, 64). CPU: plain version; CUDA: the
+    csrc/stem.cu kernel (bf16 only)."""
+    if x.device.type == "cpu":
+        return stem_pool_reference(x, weights)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"stem_pool: unsupported device {x.device}")
+    if x.dtype != torch.bfloat16 or x.dim() != 4 or x.shape[-1] != 3:
+        raise ValueError(f"stem_pool: expected (B, H, W, 3) bfloat16, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    w = weights["w"]
+    bias = weights["bias"]
+    if w.dtype != torch.bfloat16 or tuple(w.shape) != (7, 7, 3, 64) \
+            or bias.dtype != torch.float32 or w.device != x.device:
+        raise ValueError("stem_pool: weights must come from "
+                         "fold_stem_weights(..., dtype=bfloat16) on x's device")
+    x = x.contiguous()
+    B, H, W, _ = x.shape
+    hc, wc = (H - 1) // 2 + 1, (W - 1) // 2 + 1
+    out = torch.empty((B, (hc - 1) // 2 + 1, (wc - 1) // 2 + 1, 64),
+                      dtype=x.dtype, device=x.device)
+    fn = _build.bind("stem.cu", "tp_stem_pool", [_build.PTR] * 4
+                     + [_build.INT] * 3 + [_build.PTR])
+    _build.check(fn(x.data_ptr(), w.contiguous().data_ptr(),
+                    bias.contiguous().data_ptr(), out.data_ptr(), B, H, W,
+                    _build.stream_of(x)), "stem_pool")
+    stem_pool.launches += 1
+    return out
+
+
+stem_pool.launches = 0
+
+
+def is_fast_r50(model) -> bool:
+    """True where the fused serving forward covers the model: a
+    SimpleBaseline with a ResNet-50 backbone, in bf16 (the kernels' type)
+    or on the CPU (where the plain versions run in any dtype)."""
+    p = next(model.parameters())
+    return (getattr(model, "backbone_name", None) == "resnet50"
+            and (p.dtype == torch.bfloat16 or p.device.type == "cpu"))
+
+
+@torch.no_grad()
+def fold_fast_r50(model) -> dict:
+    """Fold every weight the fused forward's kernels take, once, in the
+    model's dtype."""
+    from tpupose_torch.ops.cuda_bridge import fold_bridge_weights
+    from tpupose_torch.ops.cuda_layer1 import fold_layer1_weights
+
+    bb = model.backbone
+    return {"stem": fold_stem_weights(bb), "layer1": fold_layer1_weights(bb),
+            "bridge": fold_bridge_weights(bb)}
+
+
+@torch.no_grad()
+def fast_r50_stem_apply(model, x: torch.Tensor, weights: dict):
+    """The composed serving forward of SimpleBaseline-R50: normalized NHWC
+    (B, H, W, 3) -> heatmaps (B, H/4, W/4, K).
+
+    Fused stem+pool kernel (replaces conv1, bn1 and the max-pool), layer1
+    kernel (layer1 blocks 0-2), block2_0 kernel (layer2 block 0), then
+    the model's own modules for layer2 blocks 1-3, layer3, layer4 and the
+    head. `weights` from fold_fast_r50(model)."""
+    from tpupose_torch.ops.cuda_bridge import bridge
+    from tpupose_torch.ops.cuda_layer1 import layer1
+
+    bb = model.backbone
+    y = stem_pool(x, weights["stem"])
+    y = layer1(y, weights["layer1"])
+    y = bridge(y, weights["bridge"])
+    y = y.permute(0, 3, 1, 2)                   # NCHW view, channels_last
+    for blk in list(bb.layer2)[1:]:
+        y = blk(y)
+    y = bb.layer4(bb.layer3(y))
+    return model.head(y).permute(0, 2, 3, 1)
