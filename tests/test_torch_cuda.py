@@ -4,10 +4,12 @@ torch.cuda.is_available() is false (decided inside the fixture, never at
 import). Run on a GPU machine with `python -m pytest -m cuda
 tests/test_torch_cuda.py -q`.
 
-Tolerances: the kernels and the plain versions round the same
+Tolerances: the bf16 kernels and their plain versions round the same
 intermediates to bf16; they differ by float32 summation order, which
 flips an occasional bf16 rounding of an intermediate (one bf16 ulp,
 2^-8 relative), so values agree to a few bf16 ulps of the tensor's range.
+The int8 kernels' products are exact and their epilogues repeat the plain
+versions' float32 operations in order, so they must be bit-equal.
 """
 
 import numpy as np
@@ -76,3 +78,45 @@ def test_dark_decode_kernel(card):
     rc, rsc = dark_decode_reference(hm)
     assert torch.equal(s, rsc)
     assert (c - rc).abs().max().item() < 1e-3
+
+
+@pytest.fixture(scope="module")
+def int8_engine(card):
+    """The int8 engine of the card model, calibrated on two seeded crops."""
+    from tpupose_torch.ops.cuda_engine import CudaServingEngine
+
+    imgs = np.random.RandomState(4).randint(0, 256, (2, 256, 192, 3)) \
+        .astype(np.uint8)
+    return CudaServingEngine.build(card, imgs)
+
+
+@pytest.mark.parametrize("block", [0, 1, 3], ids=["projection", "identity",
+                                                  "stride2"])
+def test_int8_bottleneck_kernel(int8_engine, block):
+    """K5: the kernel's int products are exact and its epilogue repeats
+    the plain version's float32 operations in order: bit-equal."""
+    from tpupose_torch.ops.cuda_stages import chunk_reference, run_chunk
+
+    blk = int8_engine.blocks[block]
+    hw = (64, 48)                    # layer1 and block2_0 inputs
+    g = torch.Generator().manual_seed(5 + block)
+    x = torch.randint(0, 60, (2, *hw, blk.cin), generator=g,
+                      dtype=torch.int8).cuda()
+    got = run_chunk(x, blk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, chunk_reference(x, blk))
+
+
+@pytest.mark.parametrize("deconv", [0, 2], ids=["deconv", "fused_final"])
+def test_int8_deconv_kernel(int8_engine, deconv):
+    """K6, with and without the fused final conv: bit-equal."""
+    from tpupose_torch.ops.cuda_head import deconv_reference, run_deconv
+
+    spec = int8_engine.deconvs[deconv]
+    hw = {0: (8, 6), 2: (32, 24)}[deconv]
+    g = torch.Generator().manual_seed(9 + deconv)
+    x = torch.randint(0, 60, (2, *hw, spec.cin), generator=g,
+                      dtype=torch.int8).cuda()
+    got = run_deconv(x, spec)
+    torch.cuda.synchronize()
+    assert torch.equal(got, deconv_reference(x, spec))

@@ -8,6 +8,11 @@ kernel forward `fast_r50_stem_apply` (fused stem+pool, layer1 and
 block2_0 kernels); its folded weights are computed once, at
 construction. It is the same function as the plain forward, which every
 other model, dtype and size takes.
+
+With `int8_engine` (an ops/cuda_engine.CudaServingEngine built from the
+model) the forward is the engine's uint8 -> heatmaps chain instead, the
+normalize being folded into its stem; the flipped forward flips the raw
+uint8 pixels. Merge, decode and back-projection are unchanged.
 """
 
 from __future__ import annotations
@@ -29,14 +34,20 @@ class TopDownEvaluator:
     def __init__(self, model, heatmap_size, decode: str = "dark",
                  flip_test: bool = True, flip_pairs=None,
                  blur_kernel: int = 11, sigma: float = 2.0,
-                 udp: bool = False, device="cuda"):
+                 udp: bool = False, device="cuda", int8_engine=None,
+                 family: str = "heatmap"):
         """model: a tpupose_torch SimpleBaseline (or any module mapping
         normalized NHWC images to (B, Hh, Wh, K) heatmaps), moved to
         `device` and put in eval mode. udp: unit-length coordinate
         convention (back-projection on the (N-1)-interval grid, flip-test
-        mirror without the 1-px shift)."""
+        mirror without the 1-px shift). int8_engine: a CudaServingEngine
+        built from this model, which replaces normalize + forward (heatmap
+        family only)."""
         from tpupose_torch.ops.cuda_stem import fold_fast_r50, is_fast_r50
 
+        if family != "heatmap":
+            raise ValueError(f"the port (and its int8_engine) serves the "
+                             f"heatmap family only, got family={family!r}")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.heatmap_size = tuple(heatmap_size)
@@ -47,8 +58,10 @@ class TopDownEvaluator:
         self.blur_kernel = blur_kernel
         self.sigma = sigma
         self.udp = udp
+        self.int8_engine = int8_engine
         self.fast_weights = (fold_fast_r50(self.model)
-                             if is_fast_r50(self.model) else None)
+                             if int8_engine is None and is_fast_r50(self.model)
+                             else None)
         self.dtype = next(self.model.parameters()).dtype
 
     @torch.no_grad()
@@ -69,10 +82,14 @@ class TopDownEvaluator:
         from tpupose_torch.ops.decode import merge_flip
         from tpupose_torch.ops.preprocess import normalize_images
 
-        x = normalize_images(images)
-        hm = self.forward(x).permute(0, 3, 1, 2).float()
+        if self.int8_engine is not None:
+            # flipping raw uint8 pixels == flipping normalized pixels
+            x, fwd = images, self.int8_engine.forward
+        else:
+            x, fwd = normalize_images(images), self.forward
+        hm = fwd(x).permute(0, 3, 1, 2).float()
         if self.flip_test:
-            hm_f = self.forward(x.flip(2)).permute(0, 3, 1, 2).float()
+            hm_f = fwd(x.flip(2)).permute(0, 3, 1, 2).float()
             hm = merge_flip(hm, hm_f, self.flip_pairs, shift=not self.udp)
         return hm
 

@@ -12,15 +12,17 @@ import numpy as np
 class HeatmapPredictor:
     def __init__(self, model, heatmap_size, decode: str = "dark",
                  flip_test: bool = False, flip_pairs=None, udp: bool = False,
-                 device="cuda"):
+                 device="cuda", int8_engine=None):
         """model: a tpupose_torch SimpleBaseline (see TopDownEvaluator);
-        device defaults to "cuda" and raises where CUDA is absent."""
+        device defaults to "cuda" and raises where CUDA is absent.
+        int8_engine: an ops/cuda_engine.CudaServingEngine built from the
+        model, which serves the forward in int8."""
         from tpupose_torch.engine.evaluator import TopDownEvaluator
 
         self._ev = TopDownEvaluator(model, heatmap_size, decode=decode,
                                     flip_test=flip_test,
                                     flip_pairs=flip_pairs, udp=udp,
-                                    device=device)
+                                    device=device, int8_engine=int8_engine)
 
     @property
     def evaluator(self):

@@ -1,8 +1,11 @@
 """Fused ResNet stem (conv 7x7/2 + BN + ReLU + max-pool 3x3/2) and the
 composed R50 serving forward (counterpart of tpupose/ops/pallas_stem.py).
 
-  - `fold_stem_weights`: BatchNorm folded into the stem conv (HWIO bf16
-    weights + float32 bias), computed in float64;
+  - `fold_stem_weights`: BatchNorm (and optionally the uint8 normalize's
+    per-channel scale) folded into the stem conv (HWIO bf16 weights +
+    float32 bias), computed in float64;
+  - `center_raw`: raw uint8 pixels minus 255*mean, the input that goes
+    with `fold_stem_weights(input_scale=1/(255*std))`;
   - `stem_pool_reference`: the plain PyTorch version, in float32 with
     the conv output rounded to the input dtype before the pool, as the
     kernel rounds it;
@@ -21,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from tpupose_torch.ops import _build
+from tpupose_torch.ops.preprocess import IMAGENET_MEAN
 
 
 @torch.no_grad()
@@ -33,13 +37,31 @@ def fold_bn(conv: torch.nn.Module, bn: torch.nn.BatchNorm2d):
 
 
 @torch.no_grad()
-def fold_stem_weights(backbone, dtype=None) -> dict:
+def fold_stem_weights(backbone, dtype=None, input_scale=None) -> dict:
     """The backbone's conv1 + bn1 -> {"w": (7, 7, 3, 64) HWIO in `dtype`
-    (default: the conv's dtype), "bias": (64,) float32}."""
+    (default: the conv's dtype), "bias": (64,) float32}.
+
+    input_scale (per input channel, len 3), e.g. 1/(255*std_c) for the
+    uint8 normalize with the mean taken off by `center_raw`, is folded
+    into the weights in float64. Only a scale may be folded: it commutes
+    with the conv's zero padding, a shift would not."""
     dtype = dtype or backbone.conv1.weight.dtype
     w, b = fold_bn(backbone.conv1, backbone.bn1)
+    if input_scale is not None:
+        sc = torch.as_tensor(input_scale, dtype=torch.float64,
+                             device=w.device)
+        w = w * sc.reshape(1, 3, 1, 1)
     return {"w": w.permute(2, 3, 1, 0).contiguous().to(dtype),
             "bias": b.float()}
+
+
+def center_raw(images: torch.Tensor, mean=IMAGENET_MEAN) -> torch.Tensor:
+    """Per-channel centering of raw uint8 pixels: x - 255*mean_c, float32.
+    With fold_stem_weights(input_scale=1/(255*std)) this is the ImageNet
+    normalize, exact at the conv's zero-padded border too (centered 0 ==
+    normalized 0)."""
+    m = torch.tensor(mean, dtype=torch.float32, device=images.device) * 255.0
+    return images.to(torch.float32) - m
 
 
 def stem_pool_reference(x: torch.Tensor, weights: dict) -> torch.Tensor:
