@@ -19,6 +19,13 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
      it, must EQUAL its plain version (0 differing elements); timed beside
      the plain version, a torch._int_mm yardstick (which must equal the
      plain version too) and the same blocks as bf16 cuDNN convolutions;
+  3c. the warp kernel K7 at B=128: seeded (128, 256, 192, 3) uint8 crops
+     under seeded matrices (rotation +-60 deg, scale 0.65-1.35, so parts
+     of the views fall outside the image) must EQUAL its plain version;
+     then crops_from_frames, 32 frames of 480x640 with D=4 person crops
+     each -> 128 crops of 256x192, must equal its plain version; both
+     timed beside the plain version and F.grid_sample (align_corners,
+     zero padding) on a float32 NCHW copy made outside the timed region;
   4. the slice: SimpleBaseline("resnet50", 17) in bf16 with seeded random
      weights and BatchNorm statistics, HeatmapPredictor with flip test on
      32 uint8 crops; every kernel's launch count is set to 0 before and
@@ -36,23 +43,40 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
   5. PoseServer on 127.0.0.1 (ephemeral port): 8 concurrent .npy posts,
      17 keypoints each, and /stats must show coalesced batches; 5b. the
      same through a PoseServer over the int8 predictor;
+  7. the training slice: Trainer(cfg, device="cuda") with the config of
+     tpupose/configs/method/simple_baseline.yaml plus
+     data.device_affine=true (SimpleBaseline-R50 256x192, 17 keypoints,
+     bf16 autocast over float32 weights, Adam, B=64, synthetic data),
+     cut to 3 of its 140 epochs; the warp kernel's count is set to 0
+     before and must equal the number of train steps after; every loss
+     finite, the last epoch's mean loss below the first's, validate()
+     finite, and a fresh Trainer resumes the saved checkpoint to the same
+     step with equal parameters. Then one float32 train step (TF32 off,
+     fixed draws) of the full R50 at B=4 on the card against the same
+     step on the CPU (loss and grad_norm rtol 1e-3); the trainer's img/s
+     at B=64, train-step img/s at B=128 with and without the device
+     affine augmentation, and the peak device memory;
   6. a JSON line of every kernel's numbers, then the last line
      {"ok": true, "device": {...}}.
 
 Exits non-zero without printing a result where CUDA is unavailable. Needs
-one card; imports nothing of JAX.
+one card; imports nothing of JAX. Writes only under build/ of the
+checkout (the kernels and the phase-7 checkpoints, removed at the end).
 """
 
 from __future__ import annotations
 
+import copy
 import io
 import json
+import shutil
 import statistics
 import subprocess
 import sys
 import threading
 import time
 import urllib.request
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -64,6 +88,23 @@ PEAKS = {"SXM": (989e12, 67e12, 3.35e12, 1979e12),
          "PCIe": (756e12, 51e12, 2.0e12, 1513e12)}
 B = 128
 H, W, K = 256, 192, 17
+ROOT = Path(__file__).resolve().parent
+
+# tpupose/configs/method/simple_baseline.yaml (the graded SimpleBaseline
+# training config, BASELINE.json:8), written out so that the script reads
+# no file of the JAX package
+SIMPLE_BASELINE = {
+    "model": {"name": "simple_baseline", "backbone": "resnet50",
+              "num_keypoints": 17, "heatmap_size": [64, 48],
+              "freeze_backbone": False},
+    "data": {"name": "synthetic", "image_size": [256, 192], "sigma": 2.0},
+    "train": {"batch_size": 64, "epochs": 140, "warmup_epochs": 1},
+    "loss": {"name": "joints_mse"},
+    "optimizer": {"name": "adam", "lr": 1.0e-3},
+    "lr_scheduler": {"name": "multistep", "milestones": [90, 120],
+                     "gamma": 0.1},
+    "eval": {"flip_test": True, "decode": "dark"},
+}
 
 
 def log(*a):
@@ -272,6 +313,76 @@ def serve_check(pred, crops, label):
         raise AssertionError(f"{label} server did not coalesce: {stats}")
     log(f"server ({label}): 8 answers x {K} keypoints; stats "
         f"{json.dumps(stats)}")
+
+
+def warp_mats(n, h, w, seed, max_deg=60.0, lo=0.65, hi=1.35):
+    """Seeded dst->src matrices on the card: rotation up to +-max_deg and
+    scale lo..hi about the centre of an h x w image."""
+    g = torch.Generator().manual_seed(seed)
+    th = torch.deg2rad((torch.rand(n, generator=g) * 2 - 1) * max_deg)
+    mu = lo + (hi - lo) * torch.rand(n, generator=g)
+    cos, sin = torch.cos(th) * mu, torch.sin(th) * mu
+    A = torch.stack([torch.stack([cos, -sin], -1),
+                     torch.stack([sin, cos], -1)], -2)
+    c = torch.tensor([w / 2, h / 2])
+    return torch.cat([A, (c - A @ c)[..., None]], -1).cuda()
+
+
+def grid_for(mats, out_hw, src_hw):
+    """The F.grid_sample grid (align_corners=True) of dst->src matrices:
+    source pixel coordinates normalized to [-1, 1]."""
+    Ho, Wo = out_hw
+    Hs, Ws = src_hw
+    ys = torch.arange(Ho, device="cuda", dtype=torch.float32)[:, None]
+    xs = torch.arange(Wo, device="cuda", dtype=torch.float32)[None, :]
+    m = mats[:, :, :, None, None]
+    sx = m[:, 0, 0] * xs + m[:, 0, 1] * ys + m[:, 0, 2]
+    sy = m[:, 1, 0] * xs + m[:, 1, 1] * ys + m[:, 1, 2]
+    return torch.stack([2 * sx / (Ws - 1) - 1, 2 * sy / (Hs - 1) - 1], -1)
+
+
+def warp_row(label, call, plain, lib, src, n_out, out_hw, f32_peak, hbm):
+    """K7 against its plain version (every element equal, else at most
+    1e-3 on the 0-255 scale with the count printed) and timed beside the
+    plain version and the grid_sample yardstick. Bound: the source read
+    once, the matrices, the float32 output written once; ~12 FLOPs of
+    coordinates per pixel and 6 of blend per channel."""
+    got, want, lib_out = call(), plain(), lib()
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    nbad, mae = int((diff > 0).sum()), diff.max().item()
+    if not (torch.isfinite(got).all() and mae <= 1e-3):
+        raise AssertionError(f"{label}: {nbad} elements differ from the "
+                             f"plain version, max {mae}")
+    lib_err = (lib_out.permute(0, 2, 3, 1) - want).abs().max().item()
+    if lib_err > 0.05:
+        raise AssertionError(f"{label}: the grid_sample yardstick differs "
+                             f"from the plain version by {lib_err}")
+    Ho, Wo = out_hw
+    C = src.shape[-1]
+    nb = nbytes(src) + n_out * 24 + n_out * Ho * Wo * C * 4
+    b_ms, b_by = bound_ms(n_out * Ho * Wo * (12 + 6 * C), nb, f32_peak, hbm)
+    row = dict(max_abs_err=mae, differing=nbad, ms=cuda_ms(call),
+               plain_ms=cuda_ms(plain), library_ms=cuda_ms(lib),
+               bound_ms=b_ms, bound_by=b_by)
+    log(f"kernel {label}: {nbad} of {got.numel()} elements differ from the "
+        f"plain version (max {mae}); grid_sample vs plain max abs "
+        f"{lib_err:.3g}; " + json.dumps({k: v for k, v in row.items()
+                                         if k.endswith("ms")
+                                         or k == "bound_by"}))
+    return row
+
+
+def synthetic_batch(n, seed):
+    """n samples of the port's synthetic set at 256x192, 17 keypoints."""
+    from tpupose_torch.data.synthetic import SyntheticTopDownDataset
+
+    ds = SyntheticTopDownDataset(n, (H, W), (64, 48), K, seed=seed)
+    smp = [ds[i] for i in range(n)]
+    return {"images": torch.from_numpy(np.stack([x["image"] for x in smp])),
+            "joints": torch.from_numpy(np.stack([x["joints"] for x in smp])),
+            "visibility": torch.from_numpy(
+                np.stack([x["visibility"] for x in smp]))}
 
 
 def main() -> int:
@@ -584,6 +695,48 @@ def main() -> int:
         parts=k6_parts)
     del stage_in, head_in, stage_bf, head_bf
 
+    # -- phase 3c: the warp kernel (K7) at B=128 -----------------------------
+    from tpupose_torch.ops.affine import batched_affine_warp, get_affine_matrix
+    from tpupose_torch.ops.cuda_warp import (_plain_crops, affine_warp,
+                                             crops_from_frames)
+
+    wm = warp_mats(B, H, W, seed=3)
+    src_f = imgs.permute(0, 3, 1, 2).float().contiguous()
+    grid = grid_for(wm, (H, W), (H, W))
+    k7 = warp_row("affine_warp", lambda: affine_warp(imgs, wm, (H, W)),
+                  lambda: batched_affine_warp(imgs, wm, (H, W)),
+                  lambda: F.grid_sample(src_f, grid, mode="bilinear",
+                                        padding_mode="zeros",
+                                        align_corners=True),
+                  imgs, B, (H, W), f32_peak, hbm)
+    nf, D, FH, FW = 32, 4, 480, 640
+    gf = torch.Generator(device="cuda").manual_seed(4)
+    frames = torch.randint(0, 256, (nf, FH, FW, 3), generator=gf,
+                           device="cuda", dtype=torch.uint8)
+    gb = torch.Generator().manual_seed(5)
+    hgt = 150 + 300 * torch.rand(nf * D, generator=gb)     # person boxes
+    centers = torch.stack([80 + 480 * torch.rand(nf * D, generator=gb),
+                           80 + 320 * torch.rand(nf * D, generator=gb)], -1)
+    cm = get_affine_matrix(centers, torch.stack([hgt * W / H, hgt], -1),
+                           0.0, (H, W)).cuda()
+    rep_f = frames.permute(0, 3, 1, 2).float().repeat_interleave(D, 0) \
+        .contiguous()
+    cgrid = grid_for(cm, (H, W), (FH, FW))
+    k7c = warp_row(f"crops_from_frames ({nf} frames {FH}x{FW}, D={D})",
+                   lambda: crops_from_frames(frames, cm, (H, W)),
+                   lambda: _plain_crops(frames, cm, (H, W)),
+                   lambda: F.grid_sample(rep_f, cgrid, mode="bilinear",
+                                         padding_mode="zeros",
+                                         align_corners=True),
+                   frames, nf * D, (H, W), f32_peak, hbm)
+    results["affine_warp"] = dict(
+        name="affine_warp", route="cuda", source="tpupose_torch/csrc/warp.cu",
+        replaces="tpupose/ops/pallas_warp.py:38 _warp_kernel "
+                 "(pallas_affine_warp :80, pallas_call :93; "
+                 "pallas_crops_from_frames :113, pallas_call :134)",
+        launches=None, **k7, crops_from_frames=k7c)
+    del src_f, grid, frames, rep_f, cgrid
+
     # -- phase 4: the slice ----------------------------------------------------
     wrappers = {"stem_pool": stem_pool, "layer1": layer1, "bridge": bridge,
                 "dark_decode": dark_decode}
@@ -675,6 +828,135 @@ def main() -> int:
     # -- phase 5: the servers --------------------------------------------------
     serve_check(pred, crops, "bf16 kernels")
     serve_check(pred8, crops, "int8")
+
+    # -- phase 7: the training slice -------------------------------------------
+    from tpupose_torch.configs import default_config
+    from tpupose_torch.configs.default import OptimizerConfig
+    from tpupose_torch.engine.optimizers import make_optimizer
+    from tpupose_torch.engine.train_state import (TrainState,
+                                                  make_heatmap_train_step)
+    from tpupose_torch.engine.trainer import Trainer
+    from tpupose_torch.losses.heatmap import joints_mse_loss
+    from tpupose_torch.models.simple_baseline import init_like_flax
+
+    del eng, model, model32, pred, pred8
+    torch.cuda.empty_cache()
+    out_dir = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cfg = default_config()
+    cfg.merge_dict(SIMPLE_BASELINE)
+    cfg.merge_dotted({"data.device_affine": "true",
+                      # depth cut: 3 of 140 epochs (the multistep schedule's
+                      # first epochs do not depend on the total)
+                      "train.epochs": "3",
+                      "train.output_dir": str(out_dir)})
+    cfg.freeze()
+    tr = Trainer(cfg, device="cuda")
+    step_losses = []
+    step_fn = tr.train_step
+
+    def recording_step(state, batch, draws=None):
+        m = step_fn(state, batch, draws)
+        step_losses.append(m["loss"])
+        return m
+
+    tr.train_step = recording_step
+    torch.cuda.synchronize()
+    affine_warp.launches = 0
+    t0 = time.perf_counter()
+    tr.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    n_steps, n_warp = tr.state.step, affine_warp.launches
+    losses = torch.stack(step_losses).float().cpu()
+    spe = tr.steps_per_epoch
+    first, last = losses[:spe].mean().item(), losses[-spe:].mean().item()
+    log(f"trainer (R50 256x192, B=64, bf16 autocast, Adam, device affine): "
+        f"{n_steps} steps in {train_s:.1f} s, warp launches {n_warp}; "
+        f"losses {[round(v, 6) for v in losses.tolist()]}; epoch mean "
+        f"{first:.6f} -> {last:.6f}; trainer img/s (last epoch) "
+        f"{tr.img_per_s:.1f}")
+    if n_warp != n_steps or n_steps != 3 * spe:
+        raise AssertionError(f"warp launches {n_warp} != train steps "
+                             f"{n_steps} (expected {3 * spe})")
+    if not (torch.isfinite(losses).all() and last < first):
+        raise AssertionError("training losses not finite or not falling")
+    val = tr.validate()
+    if not np.isfinite(val):
+        raise AssertionError(f"validate() not finite: {val}")
+    results["affine_warp"].update(launches=n_warp, train_steps=n_steps,
+                                  launches_per_train_step=n_warp / n_steps)
+    tr2 = Trainer(cfg, device="cuda")
+    if tr2.load_checkpoint() != n_steps or tr2.state.step != n_steps:
+        raise AssertionError("resume did not restore the step")
+    for (k, a_), b_ in zip(tr.model.state_dict().items(),
+                           tr2.model.state_dict().values()):
+        if not torch.equal(a_, b_):
+            raise AssertionError(f"resume: {k} differs")
+    log(f"validate(): {val:.6f}; resume restores step {n_steps} with equal "
+        f"parameters and statistics")
+    trainer_ips = tr.img_per_s
+    del tr, tr2
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # one float32 step (TF32 off) of the full R50 at B=4: card vs CPU
+    aug = dict(color_jitter_strength=0.2, jitter_seed=0, heatmap_size=(64, 48),
+               sigma=2.0, affine_rotation=30.0, affine_scale=0.25)
+    step32 = make_heatmap_train_step(joints_mse_loss, **aug)
+    m_cpu = SimpleBaseline("resnet50", K, dtype=torch.float32, device="cpu",
+                           param_dtype=torch.float32)
+    init_like_flax(m_cpu, torch.Generator().manual_seed(7))
+    m_gpu = copy.deepcopy(m_cpu).cuda()
+    b4 = synthetic_batch(4, seed=8)
+    draws = step32.draws_for(0, 4, "cpu")
+    one = {}
+    for dev, m in (("cpu", m_cpu), ("cuda", m_gpu)):
+        opt = make_optimizer(OptimizerConfig(name="sgd", lr=0.01),
+                             m.named_parameters(), grad_clip_norm=10.0)
+        mv = lambda t: t.to(dev)  # noqa: E731
+        d = {k: tuple(mv(t) for t in v) for k, v in draws.items()}
+        met = step32(TrainState(m, opt), {k: mv(v) for k, v in b4.items()},
+                     draws=d)
+        one[dev] = (met["loss"].item(), met["grad_norm"].item())
+    (lc, gc), (lg, gg) = one["cpu"], one["cuda"]
+    log(f"float32 R50 train step, B=4: loss card {lg:.7f} cpu {lc:.7f}, "
+        f"grad_norm card {gg:.6f} cpu {gc:.6f}")
+    if not (abs(lg / lc - 1) <= 1e-3 and abs(gg / gc - 1) <= 1e-3):
+        raise AssertionError("the card's float32 step differs from the CPU's")
+    del m_cpu, m_gpu
+
+    # train-step img/s at B=128, with and without the device affine warp
+    tm = SimpleBaseline("resnet50", K, dtype=torch.bfloat16, device="cpu",
+                        param_dtype=torch.float32)
+    init_like_flax(tm, torch.Generator().manual_seed(9))
+    tm = tm.cuda()
+    tstate = TrainState(tm, make_optimizer(
+        OptimizerConfig(name="adam", lr=1e-3), tm.named_parameters(),
+        is_head=lambda n: not n.startswith("backbone"), grad_clip_norm=10.0))
+    bb = {k: v.cuda() for k, v in synthetic_batch(B, seed=10).items()}
+    rates = {}
+    torch.cuda.reset_peak_memory_stats()
+    for affine in (True, False):
+        kw = dict(aug, affine_rotation=30.0 if affine else 0.0,
+                  affine_scale=0.25 if affine else 0.0)
+        fn = make_heatmap_train_step(joints_mse_loss, **kw)
+        for _ in range(2):
+            fn(tstate, bb)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            met = fn(tstate, bb)
+        torch.cuda.synchronize()
+        rates[f"device_affine_{int(affine)}"] = \
+            B * 10 / (time.perf_counter() - t0)
+        if not np.isfinite(met["loss"].item()):
+            raise AssertionError("B=128 train step loss not finite")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log("train img/s: trainer at B=64 (its last-epoch figure, host data "
+        f"included) {trainer_ips:.1f}; train step at B=128 (device batch, "
+        f"bf16 autocast, Adam) {json.dumps(rates)}; peak device memory "
+        f"at B=128 {peak:.2f} GiB")
 
     # -- phase 6 ---------------------------------------------------------------
     print(json.dumps({"kernels": list(results.values())}), flush=True)

@@ -9,7 +9,9 @@ intermediates to bf16; they differ by float32 summation order, which
 flips an occasional bf16 rounding of an intermediate (one bf16 ulp,
 2^-8 relative), so values agree to a few bf16 ulps of the tensor's range.
 The int8 kernels' products are exact and their epilogues repeat the plain
-versions' float32 operations in order, so they must be bit-equal.
+versions' float32 operations in order, so they must be bit-equal. So must
+the warp kernel (K7), which computes its coordinates and blend with the
+plain version's float32 operations in order and no FMA contraction.
 """
 
 import numpy as np
@@ -120,3 +122,98 @@ def test_int8_deconv_kernel(int8_engine, deconv):
     got = run_deconv(x, spec)
     torch.cuda.synchronize()
     assert torch.equal(got, deconv_reference(x, spec))
+
+
+@pytest.fixture(scope="module")
+def gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels run only on the card)")
+    return torch.device("cuda")
+
+
+def _warp_mats(n, h, w, seed, max_deg=60.0):
+    """Seeded dst->src matrices: rotation up to +-max_deg, scale 0.65-1.35
+    about the image centre, so parts of the views fall outside."""
+    rs = np.random.RandomState(seed)
+    th = np.deg2rad(rs.uniform(-max_deg, max_deg, n))
+    mu = rs.uniform(0.65, 1.35, n)
+    A = np.stack([np.stack([np.cos(th), -np.sin(th)], -1),
+                  np.stack([np.sin(th), np.cos(th)], -1)], -2) * mu[:, None,
+                                                                  None]
+    c = np.array([w / 2, h / 2])
+    t = c - A @ c
+    return torch.from_numpy(np.concatenate([A, t[..., None]], -1)
+                            .astype(np.float32))
+
+
+def _assert_warp_equal(got, want):
+    """K7 computes the plain version's float32 operations in its order
+    (no FMA contraction): every element equal."""
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    diff = (got - want).abs()
+    assert int((diff > 0).sum()) == 0, (int((diff > 0).sum()),
+                                        diff.max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("out_size", [(64, 48), (20, 36), (37, 29)],
+                         ids=["same", "rect_downscale", "ho_not_mult_8"])
+def test_warp_kernel(gpu, dtype, out_size):
+    """K7 against its plain version: uint8 and float32 sources, the input
+    size, a rectangular downscale, and an output height that is not a
+    multiple of 8 (the TPU kernel's tile rule does not apply)."""
+    from tpupose_torch.ops.affine import batched_affine_warp
+    from tpupose_torch.ops.cuda_warp import affine_warp
+
+    g = torch.Generator().manual_seed(11)
+    src = torch.randint(0, 256, (5, 64, 48, 3), generator=g,
+                        dtype=torch.uint8)
+    if dtype == torch.float32:
+        src = src.float() + torch.rand(src.shape, generator=g)
+    src, m = src.to(gpu), _warp_mats(5, 64, 48, seed=12).to(gpu)
+    n0 = affine_warp.launches
+    got = affine_warp(src, m, out_size)
+    assert affine_warp.launches == n0 + 1
+    _assert_warp_equal(got, batched_affine_warp(src, m, out_size))
+
+
+def test_warp_kernel_view_fully_outside(gpu):
+    from tpupose_torch.ops.cuda_warp import affine_warp
+
+    src = torch.full((2, 16, 16, 3), 200, dtype=torch.uint8, device=gpu)
+    m = torch.tensor([[[1.0, 0.0, 100.0], [0.0, 1.0, 100.0]]] * 2,
+                     device=gpu)
+    got = affine_warp(src, m, (16, 16))
+    torch.cuda.synchronize()
+    assert got.abs().max().item() == 0.0
+
+
+def test_warp_kernel_crops_from_frames(gpu):
+    """D=3 crops per frame: crop n reads frame n // 3."""
+    from tpupose_torch.ops.cuda_warp import _plain_crops, crops_from_frames
+
+    g = torch.Generator().manual_seed(13)
+    frames = torch.randint(0, 256, (2, 48, 64, 3), generator=g,
+                           dtype=torch.uint8).to(gpu)
+    m = _warp_mats(6, 48, 64, seed=14).to(gpu)
+    n0 = crops_from_frames.launches
+    got = crops_from_frames(frames, m, (32, 24))
+    assert crops_from_frames.launches == n0 + 1
+    _assert_warp_equal(got, _plain_crops(frames, m, (32, 24)))
+
+
+def test_warp_kernel_non_contiguous_input(gpu):
+    """A non-contiguous source is made contiguous before the launch (see
+    the ops/cuda_warp docstring): same result as the contiguous copy."""
+    from tpupose_torch.ops.affine import batched_affine_warp
+    from tpupose_torch.ops.cuda_warp import affine_warp
+
+    g = torch.Generator().manual_seed(15)
+    nchw = torch.randint(0, 256, (3, 3, 40, 32), generator=g,
+                         dtype=torch.uint8).to(gpu)
+    src = nchw.permute(0, 2, 3, 1)                 # NHWC view, strided
+    assert not src.is_contiguous()
+    m = _warp_mats(3, 40, 32, seed=16).to(gpu)
+    _assert_warp_equal(affine_warp(src, m, (40, 32)),
+                       batched_affine_warp(src.contiguous(), m, (40, 32)))

@@ -104,3 +104,57 @@ def test_server_on_cpu_coalesces():
         assert srv.batcher.stats()["requests"] == 4
     finally:
         srv.shutdown()
+
+
+def test_trainer_and_cli_default_to_cuda(no_cuda, tmp_path):
+    """Trainer(cfg) and the training CLI without --device ask for CUDA
+    and raise where it is absent."""
+    from tpupose_torch.cli.train import main
+    from tpupose_torch.configs import default_config
+    from tpupose_torch.engine.trainer import Trainer
+
+    cfg = default_config()
+    cfg.train.output_dir = str(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["model.backbone=resnet18", f"train.output_dir={tmp_path}"])
+
+
+def test_cuda_tensor_warp_never_takes_the_plain_version(monkeypatch):
+    """A CUDA tensor goes to the kernel (here a stubbed build that records
+    the launch) and never to the plain version. Fake CUDA tensors stand
+    in for real ones on a machine without a card."""
+    import warnings
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from tpupose_torch.ops import _build, cuda_warp
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version was reached for CUDA")
+
+    launched = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(cuda_warp, "batched_affine_warp", plain)
+    monkeypatch.setattr(cuda_warp, "_plain_crops", plain)
+    monkeypatch.setattr(_build, "bind", lambda src, name, argtypes: (
+        lambda *args: launched.append((src, name, args[3:11])) or 0))
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    n0, c0 = cuda_warp.affine_warp.launches, \
+        cuda_warp.crops_from_frames.launches
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # fake data_ptr()
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            x = torch.empty((2, 16, 12, 3), dtype=torch.uint8, device="cuda")
+            m = torch.empty((2, 2, 3), device="cuda")
+            out = cuda_warp.affine_warp(x, m, (9, 7))
+            crops = cuda_warp.crops_from_frames(x, torch.empty(
+                (6, 2, 3), device="cuda"), (8, 6))
+    assert out.device.type == "cuda" and tuple(out.shape) == (2, 9, 7, 3)
+    assert tuple(crops.shape) == (6, 8, 6, 3)
+    assert launched == [
+        ("warp.cu", "tp_affine_warp", (1, 2, 16, 12, 3, 9, 7, 1)),
+        ("warp.cu", "tp_affine_warp", (1, 6, 16, 12, 3, 8, 6, 3))]
+    assert cuda_warp.affine_warp.launches == n0 + 1
+    assert cuda_warp.crops_from_frames.launches == c0 + 1

@@ -1,0 +1,178 @@
+"""Train state and the heatmap train/eval steps (counterpart of
+tpupose/engine/train_state.py: TrainState, make_heatmap_train_step,
+make_heatmap_eval_step).
+
+The JAX step is one compiled program; here it is eager PyTorch on the
+model's device. One step: random draws -> affine augmentation (the warp
+kernel, csrc/warp.cu, on the card) -> color jitter or normalize, cast to
+bf16 as the JAX step does -> Gaussian targets rendered in the step ->
+train-mode forward (BatchNorm statistics update, see
+models/backbones/resnet.BatchNorm2d) -> loss -> backward -> clip +
+update (engine/optimizers.GroupedOptimizer) -> EMA. Nothing in the step
+waits for the device: it returns {"loss", "grad_norm"} as tensors.
+
+Random draws: the JAX step folds the step counter into a PRNGKey; the
+port draws from a torch.Generator on the batch's device seeded from
+(seed, step), so a resumed run draws the same values. Threefry bits
+cannot be reproduced by a torch.Generator, so the step also takes the
+draws as an argument (the parity tests hand it the JAX package's).
+"""
+
+from __future__ import annotations
+
+import copy
+
+import torch
+
+from tpupose_torch.ops.affine import draw_affine_augment, random_affine_augment
+from tpupose_torch.ops.heatmap import gaussian_heatmaps
+from tpupose_torch.ops.preprocess import (IMAGENET_MEAN, IMAGENET_STD,
+                                          color_jitter, draw_color_jitter,
+                                          normalize_images)
+
+
+class TrainState:
+    """Model, optimizer, update count and an optional EMA of the
+    parameters (decay min(d, (1 + t) / (10 + t)) at update t, so early
+    EMA tracks the fast-moving init). BatchNorm statistics live in the
+    model's buffers; the EMA covers parameters only, as in JAX."""
+
+    def __init__(self, model: torch.nn.Module, optimizer,
+                 ema_decay: float = 0.0):
+        self.model = model
+        self.optimizer = optimizer
+        self.step = 0
+        self.ema_decay = float(ema_decay)
+        self.ema = ([p.detach().clone() for p in model.parameters()]
+                    if self.ema_decay > 0 else None)
+        self._eval_model = None
+
+    @torch.no_grad()
+    def apply_gradients(self) -> torch.Tensor:
+        """Clip + update from the parameters' .grad, then the EMA; returns
+        the global gradient norm before clipping (device tensor)."""
+        grad_norm = self.optimizer.step()
+        if self.ema is not None:
+            t = float(self.step)
+            d = min(self.ema_decay, (1.0 + t) / (10.0 + t))
+            params = [p.detach() for p in self.model.parameters()]
+            torch._foreach_mul_(self.ema, d)
+            torch._foreach_add_(self.ema, params, alpha=1.0 - d)
+        self.step += 1
+        return grad_norm
+
+    def for_eval(self) -> torch.nn.Module:
+        """The module evaluation should use: the model itself, or (with an
+        EMA) a copy carrying the EMA parameters and the live BatchNorm
+        statistics."""
+        if self.ema is None:
+            return self.model
+        if self._eval_model is None:
+            self._eval_model = copy.deepcopy(self.model)
+        with torch.no_grad():
+            for e, p in zip(self._eval_model.parameters(), self.ema):
+                e.copy_(p)
+            for e, b in zip(self._eval_model.buffers(), self.model.buffers()):
+                e.copy_(b)
+        return self._eval_model.eval()
+
+    def state_dict(self) -> dict:
+        return {"step": self.step, "model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "ema": self.ema}
+
+    def load_state_dict(self, sd: dict):
+        self.step = int(sd["step"])
+        self.model.load_state_dict(sd["model"])
+        self.optimizer.load_state_dict(sd["optimizer"])
+        if self.ema is not None:
+            src = sd.get("ema") or [p.detach() for p in
+                                    self.model.parameters()]
+            with torch.no_grad():
+                for e, s in zip(self.ema, src):
+                    e.copy_(s)
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The draw generator's seed for update `step` of a run seeded
+    `seed` (both as 32-bit fields of one 64-bit seed)."""
+    return ((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF)
+
+
+def make_heatmap_train_step(loss_fn, color_jitter_strength: float = 0.0,
+                            jitter_seed: int = 0, heatmap_size=None,
+                            sigma: float = 2.0, affine_rotation: float = 0.0,
+                            affine_scale: float = 0.0, udp: bool = False):
+    """The heatmap-family train step, `step(state, batch, draws=None)`.
+
+    batch: {"images": uint8/float NHWC} plus EITHER {"target" (B, Hh, Wh,
+    K), "target_weight" (B, K)} OR {"joints" (B, K, 2) heatmap px,
+    "visibility" (B, K)}, whose Gaussian targets are rendered in the step.
+    affine_rotation / affine_scale > 0 run the rotation/scale warp on the
+    images and move the joints with them; color_jitter_strength > 0
+    jitters brightness, contrast and saturation. draws: {"affine": (mult,
+    rot), "jitter": (brightness, contrast, saturation)}; by default
+    `step.draws_for(state.step, B, device)`. Updates `state` in place and
+    returns {"loss", "grad_norm"} as device tensors."""
+    use_affine = affine_rotation > 0 or affine_scale > 0
+    if use_affine and heatmap_size is None:
+        raise ValueError("device affine augmentation needs heatmap_size")
+
+    def draws_for(step: int, batch: int, device) -> dict:
+        g = torch.Generator(device=device)
+        g.manual_seed(step_seed(jitter_seed, step))
+        out = {}
+        if use_affine:
+            out["affine"] = draw_affine_augment(g, batch, affine_rotation,
+                                                affine_scale)
+        if color_jitter_strength > 0:
+            out["jitter"] = draw_color_jitter(g, batch, color_jitter_strength)
+        return out
+
+    def train_step(state: TrainState, batch: dict, draws: dict = None):
+        if use_affine and "target" in batch:
+            raise ValueError("device affine augmentation needs raw joints, "
+                             "not precomputed targets")
+        images = batch["images"]
+        if draws is None:
+            draws = draws_for(state.step, images.shape[0], images.device)
+        joints, vis = batch.get("joints"), batch.get("visibility")
+        if use_affine:
+            mult, rot = draws["affine"]
+            images, joints, vis = random_affine_augment(
+                images, joints, vis, mult, rot, tuple(heatmap_size), udp=udp)
+        if color_jitter_strength > 0:
+            x = color_jitter(images.to(torch.float32) * (1.0 / 255.0),
+                             draws["jitter"])
+            m = torch.tensor(IMAGENET_MEAN, device=x.device)
+            s = torch.tensor(IMAGENET_STD, device=x.device)
+            imgs = ((x - m) / s).to(torch.bfloat16)
+        else:
+            imgs = normalize_images(images)
+        if "target" in batch:
+            target, tw = batch["target"], batch.get("target_weight")
+        else:
+            if heatmap_size is None:
+                raise ValueError("need heatmap_size to render targets")
+            t, tw = gaussian_heatmaps(joints, vis, tuple(heatmap_size), sigma)
+            target = t.permute(0, 2, 3, 1)               # NKHW -> NHWK
+        model = state.model.train()
+        loss = loss_fn(model(imgs), target, tw)
+        state.optimizer.zero_grad()
+        loss.backward()
+        grad_norm = state.apply_gradients()
+        return {"loss": loss.detach(), "grad_norm": grad_norm}
+
+    train_step.draws_for = draws_for
+    return train_step
+
+
+def make_heatmap_eval_step():
+    """`eval_step(model, images)`: normalize -> eval-mode forward ->
+    heatmaps (B, Hh, Wh, K), no gradients."""
+
+    @torch.no_grad()
+    def eval_step(model: torch.nn.Module, images: torch.Tensor):
+        return model.eval()(normalize_images(images))
+
+    return eval_step

@@ -6,7 +6,9 @@ downsample.0/.1), so torchvision-style state dicts load directly and
 `tpupose.utils.convert.convert_resnet` maps them onto the JAX tree.
 
 Semantics match the flax model: BatchNorm eps 1e-5 (eval mode uses the
-running statistics), symmetric padding 1 on every 3x3 including the
+running statistics; train mode normalises with the batch statistics and
+updates the running ones as flax does, see `BatchNorm2d`), symmetric
+padding 1 on every 3x3 including the
 stride-2 ones, padding 0 on the stride-2 1x1 downsample, stem conv 7x7/2
 pad 3 and max-pool 3x3/2 pad 1. `forward` takes NCHW; the model runs it
 in `channels_last` memory format, which is NHWC in memory.
@@ -17,11 +19,42 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d with flax's train-mode statistics update.
+
+    Train mode normalises with the batch mean and the biased batch
+    variance (as torch does) and updates the running statistics as
+    flax.linen.BatchNorm does: ra = (1 - m) * ra + m * batch with the
+    BIASED batch variance (flax's E[x^2] - E[x]^2), m = `momentum` = 0.1
+    (flax momentum 0.9). torch's own update uses the unbiased variance,
+    n/(n-1) times larger. The batch statistics come out of the same
+    F.batch_norm call (momentum 1 into zeroed buffers gives the batch mean
+    and the unbiased variance), so no extra pass over the activations is
+    made. Eval mode is nn.BatchNorm2d's."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        n = x.numel() // x.shape[1]
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
+                         self.eps)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var * ((n - 1) / n),
+                                                alpha=m)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+def _bn(c: int) -> BatchNorm2d:
+    return BatchNorm2d(c, eps=1e-5, momentum=0.1)
 
 
 class BasicBlock(nn.Module):

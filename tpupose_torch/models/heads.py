@@ -11,14 +11,17 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import torch
 from torch import nn
+
+from tpupose_torch.models.backbones.resnet import BatchNorm2d
 
 
 class HeatmapHead(nn.Module):
     """SimpleBaseline head: N x (deconv 4x4/2 + BN + ReLU), then a 1x1
-    conv with bias to K heatmap channels. The final conv runs in float32
-    (SimpleBaseline keeps `final_layer` in float32 whatever the model's
-    dtype). NCHW in and out."""
+    conv with bias to K heatmap channels. The final conv runs in float32,
+    outside any autocast region (SimpleBaseline keeps `final_layer` in
+    float32 whatever the model's dtype). NCHW in and out."""
 
     def __init__(self, in_channels: int, num_keypoints: int,
                  deconv_channels: Sequence[int] = (256, 256, 256)):
@@ -27,11 +30,12 @@ class HeatmapHead(nn.Module):
         c = in_channels
         for ch in deconv_channels:
             layers += [nn.ConvTranspose2d(c, ch, 4, 2, 1, bias=False),
-                       nn.BatchNorm2d(ch, eps=1e-5), nn.ReLU()]
+                       BatchNorm2d(ch, eps=1e-5), nn.ReLU()]
             c = ch
         self.deconv_layers = nn.Sequential(*layers)
         self.final_layer = nn.Conv2d(c, num_keypoints, 1)
 
     def forward(self, x):
         x = self.deconv_layers(x)
-        return self.final_layer(x.to(self.final_layer.weight.dtype))
+        with torch.autocast(x.device.type, enabled=False):
+            return self.final_layer(x.to(self.final_layer.weight.dtype))

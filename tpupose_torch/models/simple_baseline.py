@@ -17,32 +17,67 @@ from tpupose_torch.models.heads import HeatmapHead
 class SimpleBaseline(nn.Module):
     """NHWC (B, H, W, 3) normalized images -> heatmaps (B, H/4, W/4, K).
 
-    Built on `device` (default "cuda"; raises if CUDA is absent) in
-    `dtype`, with the head's final 1x1 conv kept in float32 and every
-    parameter in `channels_last` memory format. Weights come from the
-    module initializers under `generator` (seeded when given), or from a
-    state dict (see tpupose_torch.utils.convert)."""
+    Built on `device` (default "cuda"; raises if CUDA is absent) with
+    every parameter in `channels_last` memory format and in
+    `param_dtype`, which defaults to `dtype` (the serving build: the model
+    is cast to its compute dtype). For training, `param_dtype=float32`
+    with `dtype=bfloat16` keeps float32 master weights and runs the
+    forward under torch.autocast in bf16, as the flax model with
+    `dtype=bf16` and float32 params does. Either way the head's final
+    1x1 conv runs in float32. Weights come from the module initializers
+    under `generator` (seeded when given), from `init_like_flax`, or from
+    a state dict (see tpupose_torch.utils.convert)."""
 
     def __init__(self, backbone: str = "resnet50", num_keypoints: int = 17,
                  deconv_channels: Sequence[int] = (256, 256, 256),
                  dtype: torch.dtype = torch.bfloat16, device="cuda",
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
         dev = resolve_device(device)
         self.backbone_name = backbone
         self.num_keypoints = num_keypoints
+        self.compute_dtype = dtype
+        self.param_dtype = param_dtype or dtype
         self.backbone = ResNet.from_name(backbone)
         self.head = HeatmapHead(self.backbone.out_channels, num_keypoints,
                                 deconv_channels)
         if generator is not None:
             _init_from_generator(self, generator)
-        self.to(device=dev, dtype=dtype, memory_format=torch.channels_last)
+        self.to(device=dev, dtype=self.param_dtype,
+                memory_format=torch.channels_last)
         self.head.final_layer.float()
         self.eval()
 
     def forward(self, x):
-        y = self.head(self.backbone(x.permute(0, 3, 1, 2)))
+        x = x.permute(0, 3, 1, 2)
+        if self.compute_dtype == self.param_dtype:
+            y = self.head(self.backbone(x.to(self.param_dtype)))
+        else:
+            with torch.autocast(x.device.type, dtype=self.compute_dtype):
+                y = self.head(self.backbone(x))
         return y.permute(0, 2, 3, 1)
+
+
+@torch.no_grad()
+def init_like_flax(model: nn.Module, g: torch.Generator):
+    """flax's default initialisers, drawn from `g` on the CPU: every conv
+    and deconv kernel lecun_normal (a normal truncated at 2 std, scaled to
+    variance 1/fan_in), zero biases, BatchNorm scale 1, bias 0, running
+    mean 0 and variance 1 (the init of tpupose's SimpleBaseline)."""
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            fan_in = m.weight[0].numel() if isinstance(m, nn.Conv2d) \
+                else m.weight.shape[0] * m.weight[0, 0].numel()
+            std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+            w = torch.empty(m.weight.shape)
+            nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=g)
+            m.weight.copy_(w)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
 
 
 @torch.no_grad()

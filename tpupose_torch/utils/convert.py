@@ -3,7 +3,11 @@ tpupose/utils/convert.py).
 
 `from_flax_simple_baseline` maps a flax SimpleBaseline variable tree
 (numpy arrays) onto the state dict of
-`tpupose_torch.models.simple_baseline.SimpleBaseline`:
+`tpupose_torch.models.simple_baseline.SimpleBaseline`. It serves two
+uses: giving the port the JAX package's weights (serving parity, and
+the same start for a training comparison), and mapping the params and
+batch stats (or the EMA params) that JAX reached after some train steps
+onto the port's names, to compare them with the port's own:
 
   - conv kernels HWIO -> OIHW;
   - flax ConvTranspose kernels (kh, kw, I, O) -> torch (I, O, kh, kw),
