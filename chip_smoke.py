@@ -26,6 +26,15 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
      each -> 128 crops of 256x192, must equal its plain version; both
      timed beside the plain version and F.grid_sample (align_corners,
      zero padding) on a float32 NCHW copy made outside the timed region;
+  3d. (run after phase 7: with it, or a profiler session, ahead of
+     phase 7 the train step measured ~20% slower, and with the port's
+     code under the previous script it did not) the flash-attention
+     kernel K8 on seeded bf16 q/k/v at the ViTPose-S shape (128, 197, 6,
+     64) and the DINOv3 640x640 ViT-B shape (16, 1605, 12, 64): max abs
+     error against the plain version (float32 on the same bf16 inputs)
+     at most 2e-2 and at most twice that of F.scaled_dot_product_attention
+     (a yardstick only; the port never calls it); CUDA-event times of K8,
+     the plain version and SDPA;
   4. the slice: SimpleBaseline("resnet50", 17) in bf16 with seeded random
      weights and BatchNorm statistics, HeatmapPredictor with flip test on
      32 uint8 crops; every kernel's launch count is set to 0 before and
@@ -56,6 +65,21 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
      step on the CPU (loss and grad_norm rtol 1e-3); the trainer's img/s
      at B=64, train-step img/s at B=128 with and without the device
      affine augmentation, and the peak device memory;
+  8. the ViTPose-S slice: ViTPose("vit_small", 17, "classic") in bf16
+     with seeded weights (layer scales and LayerNorm affines at O(1), so
+     that attention shows in the heatmaps) and BatchNorm statistics,
+     HeatmapPredictor with flip test on 32 crops: K8's count goes from 0
+     to exactly 24 (2 forwards x 12 blocks) and K4's rises; the heatmaps
+     against the same model with impl="plain" attention (max rel 0.06,
+     mean rel 5e-3); finite (32, 17, 2) coordinates; img/s at B=128, flip
+     off and on, of the K8 route, the plain-attention route and an SDPA
+     route (timed only); 8 posts through a PoseServer; and
+     cli.serve.build_predictor on the vitpose_s config (flax init, bf16
+     autocast over float32 weights) answering one request through K8;
+  9. device times under torch.profiler, last: K8, its plain version and
+     SDPA at both shapes (their `ms`, `plain_ms`, `library_ms`: a K8
+     launch is shorter than its wrapper's Python, so CUDA events around
+     one call measure the host), and K4 and K7 beside their event times;
   6. a JSON line of every kernel's numbers, then the last line
      {"ok": true, "device": {...}}.
 
@@ -107,6 +131,17 @@ SIMPLE_BASELINE = {
 }
 
 
+# tpupose/configs/method/vitpose_s.yaml (ViTPose-S 256x192 serving),
+# written out for the same reason
+VITPOSE_S = {
+    "model": {"name": "vitpose", "backbone": "vit_small",
+              "decoder": "classic", "num_keypoints": 17,
+              "heatmap_size": [64, 48], "freeze_backbone": False},
+    "data": {"name": "synthetic", "image_size": [256, 192]},
+    "eval": {"flip_test": True, "decode": "dark"},
+}
+
+
 def log(*a):
     print(*a, flush=True)
 
@@ -126,6 +161,35 @@ def cuda_ms(fn, warmup=3, iters=20):
         e.synchronize()
         times.append(s.elapsed_time(e))
     return statistics.median(times)
+
+
+def device_ms(fn, iters=20):
+    """Device milliseconds per call of fn(): the union of the intervals of
+    the kernels and copies that torch.profiler records over `iters` calls
+    after warm-up, over `iters`. Unlike cuda_ms it leaves out the time
+    the card waits for the host between launches, which dominates a
+    kernel shorter than its wrapper's Python."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    iv = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                if e.device_type == DeviceType.CUDA)
+    if not iv:
+        raise AssertionError("the profiler recorded no device activity")
+    total, end = 0.0, -1.0
+    for a, b in iv:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3 / iters
 
 
 def rel_err(got, want):
@@ -373,6 +437,70 @@ def warp_row(label, call, plain, lib, src, n_out, out_hw, f32_peak, hbm):
     return row
 
 
+def attention_row(Bq, L, heads, seed, bf16_peak, hbm):
+    """K8 on seeded bf16 (Bq, L, heads, 64) q/k/v against the plain
+    version in float32 on the same inputs and the SDPA yardstick. Bound:
+    q, k, v read once and o written once; 4 L^2 D products per (batch,
+    head) at the bf16 peak. Returns the row, with the CUDA-event times
+    (host gaps included) as *events_ms, and the calls whose device times
+    (`device_ms`) phase 9 enters as ms, plain_ms and library_ms."""
+    from tpupose_torch.ops.attention import attention_reference
+    from tpupose_torch.ops.cuda_attention import flash_attention
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn((Bq, L, heads, 64), generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    scale = 0.125
+
+    def sdpa():
+        return sdpa_attention(q, k, v, scale)
+
+    got = flash_attention(q, k, v, scale)
+    want = attention_reference(q.float(), k.float(), v.float(), scale)
+    lib_out = sdpa()
+    torch.cuda.synchronize()
+    err = (got.float() - want).abs().max().item()
+    lib_err = (lib_out.float() - want).abs().max().item()
+    label = f"flash_attention ({Bq}, {L}, {heads}, 64)"
+    if not (torch.isfinite(got.float()).all() and err <= 2e-2
+            and err <= 2 * lib_err):
+        raise AssertionError(f"{label}: max abs err {err} vs the plain "
+                             f"version (tol 2e-2 and 2x SDPA's {lib_err})")
+    b_ms, b_by = bound_ms(4 * Bq * heads * L * L * 64, 4 * nbytes(q),
+                          bf16_peak, hbm)
+
+    def k8():
+        return flash_attention(q, k, v, scale)
+
+    def plain():
+        return attention_reference(q, k, v, scale)
+
+    row = dict(max_abs_err=err, sdpa_max_abs_err=lib_err, bound_ms=b_ms,
+               bound_by=b_by, events_ms=cuda_ms(k8),
+               plain_events_ms=cuda_ms(plain), library_events_ms=cuda_ms(sdpa))
+    log(f"kernel {label}: max abs err {err:.4g} vs plain (tol 2e-2), SDPA "
+        f"{lib_err:.4g}; " + json.dumps({k_: v_ for k_, v_ in row.items()
+                                         if k_.endswith("ms")
+                                         or k_ == "bound_by"}))
+    return row, {"ms": k8, "plain_ms": plain, "library_ms": sdpa}
+
+
+def set_attention(model, impl):
+    """Every RopeAttention of `model` to impl "kernel" or "plain"."""
+    from tpupose_torch.models.backbones.vit import RopeAttention
+
+    for m in model.modules():
+        if isinstance(m, RopeAttention):
+            m.impl = impl
+
+
+def sdpa_attention(q, k, v, scale=None, impl="kernel"):
+    """The SDPA yardstick in fused_attention's place (timing only)."""
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        scale=scale).transpose(1, 2)
+
+
 def synthetic_batch(n, seed):
     """n samples of the port's synthetic set at 256x192, 17 keypoints."""
     from tpupose_torch.data.synthetic import SyntheticTopDownDataset
@@ -403,6 +531,7 @@ def main() -> int:
     from tpupose_torch.ops.cuda_stem import (center_raw, fold_fast_r50,
                                              stem_pool, stem_pool_reference)
     from tpupose_torch.ops.int8_engine import fold_simple_baseline
+    from tpupose_torch.ops.attention import fused_attention
     from tpupose_torch.ops.preprocess import normalize_images
 
     # plain versions and yardsticks in true float32 / bf16, no TF32
@@ -957,6 +1086,111 @@ def main() -> int:
         f"included) {trainer_ips:.1f}; train step at B=128 (device batch, "
         f"bf16 autocast, Adam) {json.dumps(rates)}; peak device memory "
         f"at B=128 {peak:.2f} GiB")
+
+    del tm, tstate, bb
+    torch.cuda.empty_cache()
+    # -- phase 3d: the flash-attention kernel (K8), run after phase 7 --------
+    k8, k8_calls = attention_row(B, 197, 6, 6, bf16_peak, hbm)
+    k8_dino, dino_calls = attention_row(16, 1605, 12, 7, bf16_peak, hbm)
+    results["flash_attention"] = dict(
+        name="flash_attention", route="cuda",
+        source="tpupose_torch/csrc/flash_attention.cu",
+        replaces="tpupose/ops/attention.py:45 _flash (library Pallas "
+                 "flash_attention, call :69; dispatch fused_attention :84)",
+        launches=None, **k8, dinov3_640_vit_b=k8_dino)
+    torch.cuda.empty_cache()
+
+    # -- phase 8: the ViTPose-S slice -----------------------------------------
+    from tpupose_torch.cli.serve import build_predictor
+    from tpupose_torch.models.backbones import vit as vit_mod
+    from tpupose_torch.models.vitpose import ViTPose
+    from tpupose_torch.ops.cuda_attention import flash_attention
+
+    vmodel = ViTPose("vit_small", K, "classic", dtype=torch.bfloat16,
+                     device="cuda", generator=torch.Generator().manual_seed(20))
+    vpred = HeatmapPredictor(vmodel, (64, 48), flip_test=True)
+    torch.cuda.synchronize()
+    flash_attention.launches = dark_decode.launches = 0
+    coords, scores = vpred(crops)
+    counts = {"flash_attention": flash_attention.launches,
+              "dark_decode": dark_decode.launches}
+    log(f"ViTPose-S slice launches (B=32, flip): {counts}")
+    if counts["flash_attention"] != 24 or counts["dark_decode"] <= 0:
+        raise AssertionError(f"ViTPose-S path launches {counts}: expected "
+                             f"24 of flash_attention and >0 of dark_decode")
+    results["flash_attention"]["launches"] = counts["flash_attention"]
+    results["dark_decode"]["launches_vitpose"] = counts["dark_decode"]
+    if coords.shape != (32, K, 2) or not np.isfinite(coords).all() \
+            or not np.isfinite(scores).all():
+        raise AssertionError(f"bad ViTPose coords {coords.shape}")
+    xs = normalize_images(imgs[:32])
+    hm_k = vpred.evaluator.forward(xs).float()
+    set_attention(vmodel, "plain")
+    hm_p = vpred.evaluator.forward(xs).float()
+    set_attention(vmodel, "kernel")
+    _, mrel, meanrel = rel_err(hm_k, hm_p)
+    log(f"ViTPose-S heatmaps, K8 route vs plain attention: max_rel "
+        f"{mrel:.4g} (<0.06), mean_rel {meanrel:.4g} (<5e-3), shape "
+        f"{tuple(hm_k.shape)}")
+    if not (torch.isfinite(hm_k).all() and mrel < 0.06 and meanrel < 5e-3):
+        raise AssertionError("ViTPose heatmaps: K8 route disagrees with the "
+                             "plain-attention route")
+    rates = {}
+    for flip in (False, True):
+        p = HeatmapPredictor(vmodel, (64, 48), flip_test=flip)
+        rates[f"k8_flip{int(flip)}"] = img_per_s(p)
+        set_attention(vmodel, "plain")
+        rates[f"plain_flip{int(flip)}"] = img_per_s(p)
+        set_attention(vmodel, "kernel")
+        vit_mod.fused_attention = sdpa_attention
+        try:
+            rates[f"sdpa_flip{int(flip)}"] = img_per_s(p)
+        finally:
+            vit_mod.fused_attention = fused_attention
+    log("ViTPose-S img/s at B=128 (uint8 host crops -> source coords on "
+        "host; k8 = the port's route, plain = plain attention, sdpa = "
+        "F.scaled_dot_product_attention, timed only): " + json.dumps(rates))
+    serve_check(vpred, crops, "ViTPose-S")
+    cfg = default_config()
+    cfg.merge_dict(VITPOSE_S)
+    cfg.freeze()
+    cli_pred = build_predictor(cfg, "", device="cuda")
+    flash_attention.launches = 0
+    c1, s1 = cli_pred(crops[:1])
+    log(f"cli.serve.build_predictor (vitpose_s config, flax init, bf16 "
+        f"autocast): one request, {flash_attention.launches} K8 launches, "
+        f"coords {c1.shape}")
+    if c1.shape != (1, K, 2) or not np.isfinite(c1).all() \
+            or flash_attention.launches != 24:
+        raise AssertionError("cli.serve predictor did not answer through K8")
+    del vmodel, vpred, cli_pred
+
+    # -- phase 9: device times, measured last so that no profiler session
+    # precedes the timing of any other phase -----------------------------------
+    k8_row = results["flash_attention"]
+    hm = gaussian_maps(B, K, 64, 48, seed=2)
+    frames = torch.randint(0, 256, (nf, FH, FW, 3), device="cuda",
+                           dtype=torch.uint8,
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(4))
+    timed = [(results["dark_decode"], "device_ms", lambda: dark_decode(hm)),
+             (results["affine_warp"], "device_ms",
+              lambda: affine_warp(imgs, wm, (H, W))),
+             (results["affine_warp"]["crops_from_frames"], "device_ms",
+              lambda: crops_from_frames(frames, cm, (H, W)))]
+    timed += [(k8_row, key, fn) for key, fn in k8_calls.items()]
+    timed += [(k8_row["dinov3_640_vit_b"], key, fn)
+              for key, fn in dino_calls.items()]
+    for row, key, fn in timed:
+        row[key] = device_ms(fn)
+    log("device ms under torch.profiler: " + json.dumps({
+        "dark_decode": results["dark_decode"]["device_ms"],
+        "affine_warp": results["affine_warp"]["device_ms"],
+        "crops_from_frames":
+            results["affine_warp"]["crops_from_frames"]["device_ms"],
+        "flash_attention": {k: k8_row[k] for k in k8_calls},
+        "flash_attention_dinov3": {k: k8_row["dinov3_640_vit_b"][k]
+                                   for k in dino_calls}}))
 
     # -- phase 6 ---------------------------------------------------------------
     print(json.dumps({"kernels": list(results.values())}), flush=True)

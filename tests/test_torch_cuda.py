@@ -217,3 +217,72 @@ def test_warp_kernel_non_contiguous_input(gpu):
     m = _warp_mats(3, 40, 32, seed=16).to(gpu)
     _assert_warp_equal(affine_warp(src, m, (40, 32)),
                        batched_affine_warp(src.contiguous(), m, (40, 32)))
+
+
+def _qkv_views(B, L, heads, seed, gpu):
+    """q, k, v as RopeAttention cuts them from one (B, L, 3*heads*64)
+    projection: non-contiguous (B, L, heads, 64) views."""
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn((B, L, 3 * heads * 64), generator=g) \
+        .to(gpu, torch.bfloat16)
+    return qkv.view(B, L, 3, heads, 64).unbind(2)
+
+
+@pytest.mark.parametrize("L", [1, 63, 64, 65, 197, 1605])
+def test_flash_attention_kernel(gpu, L):
+    """K8 against the plain version (float32 softmax on the same bf16
+    inputs) on strided views, B*heads > 1. Tolerance 2e-2 absolute, the
+    bf16 bound of tests/test_fused_attention.py::test_jit_and_vit_shapes:
+    the kernel rounds P to bf16 before the PV product and the output to
+    bf16."""
+    from tpupose_torch.ops.attention import attention_reference
+    from tpupose_torch.ops.cuda_attention import flash_attention
+
+    B, heads = (2, 3) if L > 200 else (3, 2)
+    q, k, v = _qkv_views(B, L, heads, seed=20 + L, gpu=gpu)
+    assert not q.is_contiguous()
+    n0 = flash_attention.launches
+    got = flash_attention(q, k, v, 0.125)
+    assert flash_attention.launches == n0 + 1
+    torch.cuda.synchronize()
+    want = attention_reference(q, k, v, 0.125)
+    assert got.shape == (B, L, heads, 64) and got.dtype == torch.bfloat16
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+def test_fused_attention_on_the_card_goes_to_the_kernel(gpu):
+    from tpupose_torch.ops.attention import attention_reference, \
+        fused_attention
+    from tpupose_torch.ops.cuda_attention import flash_attention
+
+    q, k, v = (t.contiguous() for t in _qkv_views(2, 37, 2, 30, gpu))
+    n0 = flash_attention.launches
+    got = fused_attention(q, k, v)
+    assert flash_attention.launches == n0 + 1
+    plain = fused_attention(q, k, v, impl="plain")
+    assert flash_attention.launches == n0 + 1
+    torch.cuda.synchronize()
+    assert torch.equal(plain, attention_reference(q, k, v, 0.125))
+    assert (got.float() - plain.float()).abs().max().item() <= 2e-2
+
+
+def test_flash_attention_rejects_what_it_does_not_take(gpu):
+    from tpupose_torch.ops.attention import fused_attention
+
+    q = torch.randn((2, 17, 2, 64), device=gpu)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fused_attention(q, q, q)                           # float32
+    q48 = torch.randn((2, 17, 2, 48), device=gpu, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim must be 64, got 48"):
+        fused_attention(q48, q48, q48)
+
+
+def test_flash_attention_backward_raises(gpu):
+    from tpupose_torch.ops.attention import fused_attention
+
+    q = torch.randn((1, 9, 1, 64), device=gpu, dtype=torch.bfloat16,
+                    requires_grad=True)
+    out = fused_attention(q, q, q)
+    with pytest.raises(NotImplementedError, match="Queue B item 9"):
+        out.float().sum().backward()

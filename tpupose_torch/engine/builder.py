@@ -1,7 +1,7 @@
 """Builder: config -> objects, for the heatmap family (counterpart of
 tpupose/engine/builder.py).
 
-Ported: `model()` (simple_baseline), `loss()` (joints_mse,
+Ported: `model()` (simple_baseline, vitpose), `loss()` (joints_mse,
 joints_mse_weighted), `lr_scheduler()`, `optimizer()` (head/base lr
 split, frozen backbone, global-norm clipping), `dataset()` (synthetic)
 and `dataloader()`. Any other name raises ValueError naming the ROADMAP
@@ -25,6 +25,12 @@ def is_backbone_path(name: str) -> bool:
     return name.startswith("backbone.")
 
 
+_MODEL_ITEMS = {"hrnet": "Queue A item 7", "dinov3_pose": "Queue A item 8",
+                "simcc": "Queue A item 9", "deeppose": "Queue A item 9",
+                "bottom_up": "Queue A item 9", "fskd": "Queue A item 10",
+                "fcmae": "Queue A item 10"}
+
+
 def _unported(kind: str, name: str, item: str):
     return ValueError(f"{kind} {name!r} is not ported to tpupose_torch yet "
                       f"(ROADMAP {item})")
@@ -37,25 +43,35 @@ class Builder:
 
     # -- model -----------------------------------------------------------------
     def model(self):
-        """SimpleBaseline with flax's default init drawn from a generator
-        seeded by train.seed, float32 master weights, and bf16 autocast
-        when train.mixed_precision (else float32 throughout)."""
+        """SimpleBaseline or ViTPose with flax's default init drawn from a
+        generator seeded by train.seed, float32 master weights, and bf16
+        autocast when train.mixed_precision (else float32 throughout)."""
         from tpupose_torch.models.simple_baseline import (SimpleBaseline,
                                                           init_like_flax)
+        from tpupose_torch.models.vitpose import (ViTPose,
+                                                  init_vitpose_like_flax)
 
         m = self.cfg.model
-        if m.name != "simple_baseline":
-            raise _unported("model", m.name, "Queue A items 7-10")
+        if m.name not in ("simple_baseline", "vitpose"):
+            raise _unported("model", m.name, _MODEL_ITEMS.get(
+                m.name, "Queue A items 7-10"))
         if m.pretrained:
             raise _unported("model.pretrained", m.pretrained,
                             "Queue A item 12")
         dtype = (torch.bfloat16 if self.cfg.train.mixed_precision
                  else torch.float32)
-        model = SimpleBaseline(m.backbone, m.num_keypoints,
-                               tuple(m.deconv_channels), dtype=dtype,
-                               device="cpu", param_dtype=torch.float32)
-        init_like_flax(model, torch.Generator().manual_seed(
-            self.cfg.train.seed))
+        g = torch.Generator().manual_seed(self.cfg.train.seed)
+        if m.name == "vitpose":
+            model = ViTPose(m.backbone, m.num_keypoints, m.decoder,
+                            tuple(m.deconv_channels)[:2],
+                            freeze_backbone=m.freeze_backbone, dtype=dtype,
+                            device="cpu", param_dtype=torch.float32)
+            init_vitpose_like_flax(model, g)
+        else:
+            model = SimpleBaseline(m.backbone, m.num_keypoints,
+                                   tuple(m.deconv_channels), dtype=dtype,
+                                   device="cpu", param_dtype=torch.float32)
+            init_like_flax(model, g)
         return model.to(self.device)
 
     # -- loss ------------------------------------------------------------------

@@ -7,7 +7,9 @@ CPU, where the kernels' plain versions run) the forward is the composed
 kernel forward `fast_r50_stem_apply` (fused stem+pool, layer1 and
 block2_0 kernels); its folded weights are computed once, at
 construction. It is the same function as the plain forward, which every
-other model, dtype and size takes.
+other model, dtype and size takes. A ViTPose takes its own forward, in
+which each block's attention is the flash-attention kernel K8 on the
+card (bf16 q/k/v).
 
 With `int8_engine` (an ops/cuda_engine.CudaServingEngine built from the
 model) the forward is the engine's uint8 -> heatmaps chain instead, the
@@ -36,18 +38,23 @@ class TopDownEvaluator:
                  blur_kernel: int = 11, sigma: float = 2.0,
                  udp: bool = False, device="cuda", int8_engine=None,
                  family: str = "heatmap"):
-        """model: a tpupose_torch SimpleBaseline (or any module mapping
-        normalized NHWC images to (B, Hh, Wh, K) heatmaps), moved to
-        `device` and put in eval mode. udp: unit-length coordinate
-        convention (back-projection on the (N-1)-interval grid, flip-test
-        mirror without the 1-px shift). int8_engine: a CudaServingEngine
-        built from this model, which replaces normalize + forward (heatmap
-        family only)."""
+        """model: a tpupose_torch heatmap model, SimpleBaseline or
+        ViTPose (or any module mapping normalized NHWC images to (B, Hh,
+        Wh, K) heatmaps), moved to `device` and put in eval mode. udp:
+        unit-length coordinate convention (back-projection on the
+        (N-1)-interval grid, flip-test mirror without the 1-px shift).
+        int8_engine: a CudaServingEngine built from this model, which
+        replaces normalize + forward (SimpleBaseline-R50 only)."""
         from tpupose_torch.ops.cuda_stem import fold_fast_r50, is_fast_r50
 
         if family != "heatmap":
             raise ValueError(f"the port (and its int8_engine) serves the "
                              f"heatmap family only, got family={family!r}")
+        if int8_engine is not None and \
+                getattr(model, "backbone_name", None) != "resnet50":
+            raise ValueError("int8_engine serves SimpleBaseline-R50 only, "
+                             f"not {type(model).__name__} with backbone "
+                             f"{getattr(model, 'backbone_name', None)!r}")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.heatmap_size = tuple(heatmap_size)

@@ -1,5 +1,6 @@
-"""Batched heatmap inference (counterpart of tpupose/engine/predictor.py,
-HeatmapPredictor only): uint8 crops -> heatmaps -> (flip-test) -> DARK
+"""Batched heatmap inference for the heatmap family, SimpleBaseline and
+ViTPose (counterpart of tpupose/engine/predictor.py, HeatmapPredictor
+only): uint8 crops -> heatmaps -> (flip-test) -> DARK
 decode -> source-coordinate keypoints, all on the device; only the
 (B, K, 2) coordinates and (B, K) scores return to the host.
 """
@@ -13,10 +14,12 @@ class HeatmapPredictor:
     def __init__(self, model, heatmap_size, decode: str = "dark",
                  flip_test: bool = False, flip_pairs=None, udp: bool = False,
                  device="cuda", int8_engine=None):
-        """model: a tpupose_torch SimpleBaseline (see TopDownEvaluator);
-        device defaults to "cuda" and raises where CUDA is absent.
-        int8_engine: an ops/cuda_engine.CudaServingEngine built from the
-        model, which serves the forward in int8."""
+        """model: a tpupose_torch heatmap model, SimpleBaseline or
+        ViTPose (see TopDownEvaluator); device defaults to "cuda" and
+        raises where CUDA is absent. int8_engine: an
+        ops/cuda_engine.CudaServingEngine built from a SimpleBaseline-R50
+        model, which serves the forward in int8 (any other model
+        raises)."""
         from tpupose_torch.engine.evaluator import TopDownEvaluator
 
         self._ev = TopDownEvaluator(model, heatmap_size, decode=decode,

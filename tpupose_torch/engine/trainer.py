@@ -43,6 +43,11 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.builder = builder or Builder(cfg, self.device)
+        if cfg.model.name == "vitpose":
+            raise ValueError("ViTPose training is not ported to "
+                             "tpupose_torch yet: it needs the flash-"
+                             "attention backward kernel (ROADMAP Queue A "
+                             "item 9, ViTPose training; Queue B item 9)")
         if cfg.train.distill_cfg:
             raise ValueError("distillation (train.distill_cfg) is not ported "
                              "to tpupose_torch yet (ROADMAP Queue A item 5)")

@@ -61,14 +61,15 @@ class SimpleBaseline(nn.Module):
 
 @torch.no_grad()
 def init_like_flax(model: nn.Module, g: torch.Generator):
-    """flax's default initialisers, drawn from `g` on the CPU: every conv
-    and deconv kernel lecun_normal (a normal truncated at 2 std, scaled to
-    variance 1/fan_in), zero biases, BatchNorm scale 1, bias 0, running
-    mean 0 and variance 1 (the init of tpupose's SimpleBaseline)."""
+    """flax's default initialisers, drawn from `g` on the CPU: every conv,
+    deconv and dense kernel lecun_normal (a normal truncated at 2 std,
+    scaled to variance 1/fan_in), zero biases, BatchNorm and LayerNorm
+    scale 1, bias 0, running mean 0 and variance 1 (the init of tpupose's
+    SimpleBaseline)."""
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
-            fan_in = m.weight[0].numel() if isinstance(m, nn.Conv2d) \
-                else m.weight.shape[0] * m.weight[0, 0].numel()
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            fan_in = m.weight.shape[0] * m.weight[0, 0].numel() \
+                if isinstance(m, nn.ConvTranspose2d) else m.weight[0].numel()
             std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
             w = torch.empty(m.weight.shape)
             nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
@@ -76,7 +77,7 @@ def init_like_flax(model: nn.Module, g: torch.Generator):
             m.weight.copy_(w)
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, nn.BatchNorm2d):
+        elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
             m.reset_parameters()
 
 
@@ -94,9 +95,15 @@ def _init_from_generator(model: nn.Module, g: torch.Generator):
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.BatchNorm2d):
-            c = m.num_features
-            m.weight.copy_(torch.empty(c).uniform_(0.5, 1.0, generator=g))
-            m.bias.copy_(torch.randn(c, generator=g) * 0.1)
-            m.running_mean.copy_(torch.randn(c, generator=g) * 0.1)
-            m.running_var.copy_(torch.empty(c).uniform_(0.5, 2.0,
-                                                        generator=g))
+            randomize_batchnorm(m, g)
+
+
+@torch.no_grad()
+def randomize_batchnorm(m: nn.BatchNorm2d, g: torch.Generator):
+    """Scale U(0.5, 1), bias N(0, 0.1), running mean N(0, 0.1) and
+    variance U(0.5, 2), drawn from `g` in that order."""
+    c = m.num_features
+    m.weight.copy_(torch.empty(c).uniform_(0.5, 1.0, generator=g))
+    m.bias.copy_(torch.randn(c, generator=g) * 0.1)
+    m.running_mean.copy_(torch.randn(c, generator=g) * 0.1)
+    m.running_var.copy_(torch.empty(c).uniform_(0.5, 2.0, generator=g))

@@ -33,7 +33,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpupose_torch"
 SOURCES = ("stem.cu", "bottleneck.cu", "dark_decode.cu", "int8_bottleneck.cu",
-           "int8_deconv.cu", "warp.cu")
+           "int8_deconv.cu", "warp.cu", "flash_attention.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 
@@ -102,12 +102,14 @@ def library(src: str) -> ctypes.CDLL:
     return build_all()[src]
 
 
-PTR, INT, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+PTR, INT, I64, FLOAT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                        ctypes.c_float)
 
 
 def bind(src: str, name: str, argtypes):
     """The C function `name` of csrc/<src> with the given argtypes (PTR for
-    pointers and the stream, INT, FLOAT); returns an int error code."""
+    pointers and the stream, INT, I64, FLOAT); returns an int error
+    code."""
     key = (src, name)
     if key not in _bound:
         fn = getattr(library(src), name)

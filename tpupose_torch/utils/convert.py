@@ -3,18 +3,21 @@ tpupose/utils/convert.py).
 
 `from_flax_simple_baseline` maps a flax SimpleBaseline variable tree
 (numpy arrays) onto the state dict of
-`tpupose_torch.models.simple_baseline.SimpleBaseline`. It serves two
+`tpupose_torch.models.simple_baseline.SimpleBaseline`, and
+`from_flax_vitpose` a flax ViTPose tree onto
+`tpupose_torch.models.vitpose.ViTPose`. The first serves two
 uses: giving the port the JAX package's weights (serving parity, and
 the same start for a training comparison), and mapping the params and
 batch stats (or the EMA params) that JAX reached after some train steps
 onto the port's names, to compare them with the port's own:
 
-  - conv kernels HWIO -> OIHW;
+  - conv kernels HWIO -> OIHW, Dense kernels (in, out) -> (out, in);
   - flax ConvTranspose kernels (kh, kw, I, O) -> torch (I, O, kh, kw),
     rotated 180 degrees in space (flax runs the transposed conv as a
     fractionally strided correlation with the kernel as it is; torch's is
     the gradient of a correlation);
-  - BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var.
+  - BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var,
+    LayerNorm scale/bias -> weight/bias.
 """
 
 from __future__ import annotations
@@ -93,7 +96,28 @@ def from_flax_simple_baseline(variables: Mapping) -> dict:
                     bs[f"BatchNorm_{n_convs}"])
             bidx += 1
 
-    hp, hs = P["HeatmapHead_0"], S["HeatmapHead_0"]
+    _heatmap_head(sd, P["HeatmapHead_0"], S["HeatmapHead_0"])
+    return sd
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def _dense(sd: dict, prefix: str, p: Mapping):
+    """flax Dense {kernel (in, out), bias} -> torch Linear (out, in)."""
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"], np.float32).T)
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _ln(sd: dict, prefix: str, p: Mapping):
+    sd[f"{prefix}.weight"] = _t(p["scale"])
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _heatmap_head(sd: dict, hp: Mapping, hs: Mapping):
+    """ConvTranspose_i / BatchNorm_i / Conv_0 of a flax deconv head ->
+    the port's HeatmapHead under `head.`."""
     i = 0
     while f"ConvTranspose_{i}" in hp:
         sd[f"head.deconv_layers.{3 * i}.weight"] = deconv_weight(
@@ -102,6 +126,41 @@ def from_flax_simple_baseline(variables: Mapping) -> dict:
             hs[f"BatchNorm_{i}"])
         i += 1
     sd["head.final_layer.weight"] = conv_weight(hp["Conv_0"]["kernel"])
-    sd["head.final_layer.bias"] = torch.from_numpy(
-        np.asarray(hp["Conv_0"]["bias"], np.float32))
+    sd["head.final_layer.bias"] = _t(hp["Conv_0"]["bias"])
+
+
+def from_flax_vitpose(variables: Mapping) -> dict:
+    """flax ViTPose {params[, batch_stats]} (numpy or jax arrays) -> state
+    dict for tpupose_torch's ViTPose (float32 CPU tensors). The decoder
+    is told by the tree: ConvTranspose_i (classic) or Conv_0/Conv_1
+    (simple)."""
+    P = variables["params"]
+    S = variables.get("batch_stats", {})
+    vp = P["DinoViT_0"]
+    sd: dict = {}
+    sd["backbone.patch_embed.proj.weight"] = conv_weight(
+        vp["patch_embed"]["kernel"])
+    sd["backbone.patch_embed.proj.bias"] = _t(vp["patch_embed"]["bias"])
+    sd["backbone.cls_token"] = _t(vp["cls_token"])
+    sd["backbone.storage_tokens"] = _t(vp["storage_tokens"])
+    i = 0
+    while f"ViTBlock_{i}" in vp:
+        bp, t = vp[f"ViTBlock_{i}"], f"backbone.blocks.{i}"
+        _ln(sd, f"{t}.norm1", bp["LayerNorm_0"])
+        _dense(sd, f"{t}.attn.qkv", bp["RopeAttention_0"]["qkv"])
+        _dense(sd, f"{t}.attn.proj", bp["RopeAttention_0"]["proj"])
+        sd[f"{t}.ls1.gamma"] = _t(bp["ls1"])
+        _ln(sd, f"{t}.norm2", bp["LayerNorm_1"])
+        _dense(sd, f"{t}.mlp.fc1", bp["Dense_0"])
+        _dense(sd, f"{t}.mlp.fc2", bp["Dense_1"])
+        sd[f"{t}.ls2.gamma"] = _t(bp["ls2"])
+        i += 1
+    _ln(sd, "backbone.norm", vp["norm"])
+    if "ConvTranspose_0" in P:
+        _heatmap_head(sd, P, S)
+    else:
+        for name, key in (("head.conv", "Conv_0"),
+                          ("head.final_layer", "Conv_1")):
+            sd[f"{name}.weight"] = conv_weight(P[key]["kernel"])
+            sd[f"{name}.bias"] = _t(P[key]["bias"])
     return sd
