@@ -76,16 +76,44 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
      route (timed only); 8 posts through a PoseServer; and
      cli.serve.build_predictor on the vitpose_s config (flax init, bf16
      autocast over float32 weights) answering one request through K8;
+  3e. (after 3d) the flash-attention backward K8b on seeded bf16 q/k/v
+     (strided views of one qkv tensor, as in the model) and do at the
+     same two shapes, from K8's o and log-sum-exp: dq, dk, dv each within
+     2e-2 of the max |float32 plain gradient| and within 2x the error of
+     the autograd backward of F.scaled_dot_product_attention (a yardstick
+     only); K8's LSE within 1e-3 of torch.logsumexp of the float32 scores
+     (over ln 2); CUDA-event times of K8b, the plain backward and SDPA's
+     backward alone (autograd.grad on a retained graph);
+  10. (after 8) the ViTPose-S training slice: Trainer(cfg, device="cuda")
+     with the config of tpupose/configs/method/vitpose_s.yaml (ViT-S/16,
+     classic decoder, 17 keypoints, bf16 autocast over float32 weights,
+     AdamW lr 5e-4 wd 0.1, multistep, B=64, synthetic data) cut to 3 of
+     its 210 epochs and 1 warmup epoch (of 3: the lr would still be
+     ramping from 0); the K8/K8b counts are set to 0 before, and every
+     train step must launch exactly 12 of each (K8b 12 x steps in all;
+     validate() adds forwards); losses finite and falling, validate()
+     finite, a fresh Trainer resumes to the same step with equal
+     parameters. Then one bf16-autocast step of the full model at B=16
+     from seeded weights (O(1) layer scales) on the K8/K8b route against
+     impl="plain" (loss rel 1e-2, every parameter's gradient within 5e-2
+     of its max |grad|) and with remat (24 K8 and 12 K8b launches,
+     gradients within 1e-5 of those without); train-step img/s at B=128
+     on a device batch for the K8/K8b, plain and SDPA (timed only)
+     routes and K8/K8b with remat; peak device memory of one B=128 step
+     with remat off and on;
   9. device times under torch.profiler, last: K8, its plain version and
      SDPA at both shapes (their `ms`, `plain_ms`, `library_ms`: a K8
      launch is shorter than its wrapper's Python, so CUDA events around
-     one call measure the host), and K4 and K7 beside their event times;
+     one call measure the host), the same for K8b (its three launches
+     together) against the plain backward and SDPA's backward, and K4 and
+     K7 beside their event times;
   6. a JSON line of every kernel's numbers, then the last line
      {"ok": true, "device": {...}}.
 
-Exits non-zero without printing a result where CUDA is unavailable. Needs
-one card; imports nothing of JAX. Writes only under build/ of the
-checkout (the kernels and the phase-7 checkpoints, removed at the end).
+Phases run in the order 1-5, 7, 3d, 3e, 8, 10, 9, 6. Exits non-zero
+without printing a result where CUDA is unavailable. Needs one card;
+imports nothing of JAX. Writes only under build/ of the checkout (the
+kernels and the phase-7 and phase-10 checkpoints, removed at the end).
 """
 
 from __future__ import annotations
@@ -131,13 +159,18 @@ SIMPLE_BASELINE = {
 }
 
 
-# tpupose/configs/method/vitpose_s.yaml (ViTPose-S 256x192 serving),
-# written out for the same reason
+# tpupose/configs/method/vitpose_s.yaml (ViTPose-S 256x192: serving in
+# phase 8, training in phase 10), written out for the same reason
 VITPOSE_S = {
     "model": {"name": "vitpose", "backbone": "vit_small",
               "decoder": "classic", "num_keypoints": 17,
               "heatmap_size": [64, 48], "freeze_backbone": False},
     "data": {"name": "synthetic", "image_size": [256, 192]},
+    "train": {"batch_size": 64, "epochs": 210, "warmup_epochs": 3},
+    "loss": {"name": "joints_mse", "use_target_weight": True},
+    "optimizer": {"name": "adamw", "lr": 5.0e-4, "head_lr": 5.0e-4,
+                  "weight_decay": 0.1},
+    "lr_scheduler": {"name": "multistep", "milestones": [170, 200]},
     "eval": {"flip_test": True, "decode": "dark"},
 }
 
@@ -181,7 +214,8 @@ def device_ms(fn, iters=20):
             fn()
         torch.cuda.synchronize()
     iv = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                if e.device_type == DeviceType.CUDA)
+                if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False))
     if not iv:
         raise AssertionError("the profiler recorded no device activity")
     total, end = 0.0, -1.0
@@ -485,6 +519,83 @@ def attention_row(Bq, L, heads, seed, bf16_peak, hbm):
     return row, {"ms": k8, "plain_ms": plain, "library_ms": sdpa}
 
 
+def attention_bwd_row(Bq, L, heads, seed, bf16_peak, hbm):
+    """K8b on seeded bf16 q/k/v (strided views of one (Bq, L, 3*heads*64)
+    projection, as RopeAttention cuts them) and do, from K8's o and LSE:
+    dq, dk, dv each within 2e-2 of the max |float32 plain gradient| and
+    within 2x the error of the autograd backward of
+    F.scaled_dot_product_attention on the same inputs (a yardstick only);
+    K8's LSE (log2 domain) within 1e-3 of torch.logsumexp of the float32
+    scores over ln 2. Bound: q, k, v, o, do read once and dq, dk, dv
+    written once; 5 products of 2 L^2 64 FLOPs per (batch, head) at the
+    bf16 peak. Returns the row with CUDA-event times (host gaps included)
+    and the calls whose device times phase 9 enters as ms (K8b's three
+    launches), plain_ms and library_ms (SDPA's backward alone, on a
+    retained graph)."""
+    from tpupose_torch.ops.attention import attention_backward_reference
+    from tpupose_torch.ops.cuda_attention import (_launch,
+                                                  flash_attention_backward)
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((Bq, L, 3 * heads * 64), generator=g, device="cuda") \
+        .to(torch.bfloat16)
+    q, k, v = qkv.view(Bq, L, 3, heads, 64).unbind(2)
+    do = torch.randn((Bq, L, heads, 64), generator=g, device="cuda") \
+        .to(torch.bfloat16)
+    scale = 0.125
+    o, lse = _launch(q, k, v, scale, True)
+    got = flash_attention_backward(q, k, v, o, lse, do, scale)
+    want = attention_backward_reference(q.float(), k.float(), v.float(),
+                                        do.float(), scale)
+    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*leaves, scale=scale)
+    do_t = do.transpose(1, 2)
+    lib = [t.transpose(1, 2) for t in torch.autograd.grad(
+        lib_out, leaves, do_t, retain_graph=True)]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    lse_err = (lse - torch.logsumexp(scores, dim=-1) / 0.6931471805599453) \
+        .abs().max().item()
+    del scores
+    torch.cuda.synchronize()
+    label = f"flash_attention_bwd ({Bq}, {L}, {heads}, 64)"
+    errs, lib_errs, abs_err = {}, {}, 0.0
+    for name, a, b, w in zip(("dq", "dk", "dv"), got, lib, want):
+        den = w.abs().max().item()
+        d = (a.float() - w).abs().max().item()
+        abs_err = max(abs_err, d)
+        errs[name] = d / den
+        lib_errs[name] = (b.float() - w).abs().max().item() / den
+        if not (torch.isfinite(a.float()).all() and errs[name] <= 2e-2
+                and errs[name] <= 2 * lib_errs[name]):
+            raise AssertionError(f"{label}: {name} max err {errs[name]:.4g} "
+                                 f"of max |ref| (tol 2e-2 and 2x SDPA's "
+                                 f"{lib_errs[name]:.4g})")
+    if lse_err > 1e-3:
+        raise AssertionError(f"{label}: K8's LSE off by {lse_err} (tol 1e-3)")
+    b_ms, b_by = bound_ms(10 * Bq * heads * L * L * 64, 8 * nbytes(do),
+                          bf16_peak, hbm)
+
+    def k8b():
+        return flash_attention_backward(q, k, v, o, lse, do, scale)
+
+    def plain():
+        return attention_backward_reference(q, k, v, do, scale)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(lib_out, leaves, do_t, retain_graph=True)
+
+    row = dict(max_abs_err=abs_err, rel_err=errs, sdpa_rel_err=lib_errs,
+               lse_max_abs_err=lse_err, bound_ms=b_ms, bound_by=b_by,
+               events_ms=cuda_ms(k8b), plain_events_ms=cuda_ms(plain),
+               library_events_ms=cuda_ms(sdpa_bwd))
+    log(f"kernel {label}: max err / max |ref| {json.dumps(errs)} (tol 2e-2), "
+        f"SDPA backward {json.dumps(lib_errs)}; LSE max abs err "
+        f"{lse_err:.3g} (tol 1e-3); " + json.dumps(
+            {k_: v_ for k_, v_ in row.items() if k_.endswith("ms")
+             or k_ == "bound_by"}))
+    return row, {"ms": k8b, "plain_ms": plain, "library_ms": sdpa_bwd}
+
+
 def set_attention(model, impl):
     """Every RopeAttention of `model` to impl "kernel" or "plain"."""
     from tpupose_torch.models.backbones.vit import RopeAttention
@@ -511,6 +622,206 @@ def synthetic_batch(n, seed):
             "joints": torch.from_numpy(np.stack([x["joints"] for x in smp])),
             "visibility": torch.from_numpy(
                 np.stack([x["visibility"] for x in smp]))}
+
+
+def vit_train_phase(results):
+    """Phase 10: ViTPose-S 256x192 training through Trainer on the
+    vitpose_s config, then one B=16 step held against plain attention and
+    against remat, then train-step img/s of three attention routes and
+    peak memory with remat off and on. Fills the K8/K8b rows' training
+    launch counts."""
+    from tpupose_torch.configs import default_config
+    from tpupose_torch.configs.default import OptimizerConfig
+    from tpupose_torch.engine.optimizers import make_optimizer
+    from tpupose_torch.engine.train_state import (TrainState,
+                                                  make_heatmap_train_step)
+    from tpupose_torch.engine.trainer import Trainer
+    from tpupose_torch.losses.heatmap import joints_mse_loss
+    from tpupose_torch.models.backbones import vit as vit_mod
+    from tpupose_torch.models.vitpose import ViTPose
+    from tpupose_torch.ops.attention import fused_attention
+    from tpupose_torch.ops.cuda_attention import (flash_attention,
+                                                  flash_attention_backward)
+    from tpupose_torch.ops.heatmap import gaussian_heatmaps
+    from tpupose_torch.ops.preprocess import normalize_images
+
+    out_dir = ROOT / "build" / "chip_smoke_vit_train"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cfg = default_config()
+    cfg.merge_dict(VITPOSE_S)
+    cfg.merge_dotted({
+        # depth cut: 3 of 210 epochs; warmup 1 epoch instead of 3, or the
+        # lr would still be ramping from 0 at the end of the run
+        "train.epochs": "3", "train.warmup_epochs": "1",
+        "train.output_dir": str(out_dir)})
+    cfg.freeze()
+    tr = Trainer(cfg, device="cuda")
+    step_losses, step_launches = [], []
+    step_fn = tr.train_step
+
+    def recording_step(state, batch, draws=None):
+        n8, n8b = flash_attention.launches, flash_attention_backward.launches
+        m = step_fn(state, batch, draws)
+        step_losses.append(m["loss"])
+        step_launches.append((flash_attention.launches - n8,
+                              flash_attention_backward.launches - n8b))
+        return m
+
+    tr.train_step = recording_step
+    torch.cuda.synchronize()
+    flash_attention.launches = flash_attention_backward.launches = 0
+    t0 = time.perf_counter()
+    tr.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    n_steps = tr.state.step
+    n8, n8b = flash_attention.launches, flash_attention_backward.launches
+    losses = torch.stack(step_losses).float().cpu()
+    spe = tr.steps_per_epoch
+    first, last = losses[:spe].mean().item(), losses[-spe:].mean().item()
+    log(f"trainer (ViTPose-S 256x192, B=64, bf16 autocast, AdamW): "
+        f"{n_steps} steps in {train_s:.1f} s; K8 launches {n8} (in the "
+        f"train steps {sum(a for a, _ in step_launches)}, the rest in "
+        f"validate), K8b launches {n8b}; losses "
+        f"{[round(v, 6) for v in losses.tolist()]}; epoch mean {first:.6f} "
+        f"-> {last:.6f}; trainer img/s (last epoch) {tr.img_per_s:.1f}")
+    if n_steps != 3 * spe or any(c != (12, 12) for c in step_launches) \
+            or n8b != 12 * n_steps:
+        raise AssertionError(f"ViTPose train steps {n_steps} (expected "
+                             f"{3 * spe}) with K8/K8b launches per step "
+                             f"{step_launches} (expected 12 each), K8b "
+                             f"{n8b} in all")
+    if not (torch.isfinite(losses).all() and last < first):
+        raise AssertionError("ViTPose training losses not finite or not "
+                             "falling")
+    val = tr.validate()
+    if not np.isfinite(val):
+        raise AssertionError(f"ViTPose validate() not finite: {val}")
+    results["flash_attention"].update(launches_train=n8,
+                                      launches_per_train_step=12)
+    results["flash_attention_bwd"].update(launches=n8b, train_steps=n_steps,
+                                          launches_per_train_step=12)
+    tr2 = Trainer(cfg, device="cuda")
+    if tr2.load_checkpoint() != n_steps or tr2.state.step != n_steps:
+        raise AssertionError("ViTPose resume did not restore the step")
+    for (k, a_), b_ in zip(tr.model.state_dict().items(),
+                           tr2.model.state_dict().values()):
+        if not torch.equal(a_, b_):
+            raise AssertionError(f"ViTPose resume: {k} differs")
+    log(f"ViTPose validate(): {val:.6f}; resume restores step {n_steps} with "
+        f"equal parameters and statistics")
+    trainer_ips = tr.img_per_s
+    del tr, tr2
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # one bf16-autocast step at B=16 from the same weights: K8/K8b vs
+    # plain attention, and K8/K8b with remat vs without
+    model = ViTPose("vit_small", K, "classic", dtype=torch.bfloat16,
+                    device="cuda", param_dtype=torch.float32,
+                    generator=torch.Generator().manual_seed(22))
+    b16 = {k: v.cuda() for k, v in synthetic_batch(16, seed=11).items()}
+    x16 = normalize_images(b16["images"])
+    t16, tw16 = gaussian_heatmaps(b16["joints"], b16["visibility"], (64, 48),
+                                  2.0)
+    t16 = t16.permute(0, 2, 3, 1)
+    init = copy.deepcopy(model.state_dict())
+
+    def one_step(impl, remat):
+        model.load_state_dict(init)
+        set_attention(model, impl)
+        model.backbone.remat = remat
+        model.zero_grad()
+        flash_attention.launches = flash_attention_backward.launches = 0
+        loss = joints_mse_loss(model.train()(x16), t16, tw16)
+        loss.backward()
+        torch.cuda.synchronize()
+        counts = (flash_attention.launches, flash_attention_backward.launches)
+        return loss.item(), {n: p.grad.detach().clone()
+                             for n, p in model.named_parameters()}, counts
+
+    lk, gk, ck = one_step("kernel", False)
+    lp, gp, cp = one_step("plain", False)
+    lr_, gr, cr = one_step("kernel", True)
+    set_attention(model, "kernel")
+    model.backbone.remat = False
+
+    def worst(ga, gb):
+        w = {n: ((ga[n].float() - gb[n].float()).abs().max()
+                 / gb[n].float().abs().max().clamp_min(1e-30)).item()
+             for n in gb}
+        n = max(w, key=w.get)
+        return w[n], n
+
+    w_plain, n_plain = worst(gk, gp)
+    w_remat, n_remat = worst(gr, gk)
+    log(f"ViTPose-S bf16 step at B=16: loss K8/K8b {lk:.7f}, plain "
+        f"attention {lp:.7f} (rel {abs(lk / lp - 1):.3g}, tol 1e-2); "
+        f"gradients vs plain: worst {w_plain:.4g} of max |grad| ({n_plain}, "
+        f"tol 5e-2); launches K8/K8b {ck}, plain {cp}; with remat: loss "
+        f"{lr_:.7f} (tol rel 1e-5), launches {cr}, gradients vs without: "
+        f"worst "
+        f"{w_remat:.3g} ({n_remat}, tol 1e-5)")
+    if not (abs(lk / lp - 1) <= 1e-2 and w_plain <= 5e-2
+            and ck == (12, 12) and cp == (0, 0)):
+        raise AssertionError("ViTPose-S step: the K8/K8b route disagrees "
+                             "with plain attention")
+    if cr != (24, 12) or w_remat > 1e-5 or abs(lr_ / lk - 1) > 1e-5:
+        raise AssertionError("ViTPose-S step with remat: launches or "
+                             "gradients differ")
+    del gk, gp, gr, init
+
+    # train-step img/s at B=128 on a device batch, three attention routes
+    # (K8/K8b, plain, SDPA timed only), and peak memory, remat off and on
+    tstate = TrainState(model, make_optimizer(
+        OptimizerConfig(name="adamw", lr=5e-4, head_lr=5e-4,
+                        weight_decay=0.1), model.named_parameters(),
+        is_head=lambda n: not n.startswith("backbone."), grad_clip_norm=10.0))
+    fn = make_heatmap_train_step(joints_mse_loss, heatmap_size=(64, 48))
+    bb = {k: v.cuda() for k, v in synthetic_batch(B, seed=12).items()}
+
+    def steps_per_s(n=10):
+        for _ in range(2):
+            fn(tstate, bb)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            met = fn(tstate, bb)
+        torch.cuda.synchronize()
+        if not np.isfinite(met["loss"].item()):
+            raise AssertionError("ViTPose B=128 train step loss not finite")
+        return B * n / (time.perf_counter() - t0)
+
+    rates, peaks = {}, {}
+    for remat in (False, True):
+        model.backbone.remat = remat
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fn(tstate, bb)
+        torch.cuda.synchronize()
+        peaks[f"remat_{int(remat)}"] = \
+            torch.cuda.max_memory_allocated() / 2 ** 30
+    model.backbone.remat = False
+    rates["k8"] = steps_per_s()
+    set_attention(model, "plain")
+    rates["plain"] = steps_per_s()
+    set_attention(model, "kernel")
+    vit_mod.fused_attention = sdpa_attention
+    try:
+        rates["sdpa"] = steps_per_s()
+    finally:
+        vit_mod.fused_attention = fused_attention
+    model.backbone.remat = True
+    rates["k8_remat"] = steps_per_s()
+    model.backbone.remat = False
+    log("ViTPose-S train img/s: trainer at B=64 (its last-epoch figure, host "
+        f"data included) {trainer_ips:.1f}; train step at B=128 (device "
+        f"batch, bf16 autocast, AdamW; k8 = the port's route, plain = plain "
+        f"attention, sdpa = F.scaled_dot_product_attention, timed only) "
+        f"{json.dumps(rates)}; peak device memory of one B=128 step (GiB) "
+        f"{json.dumps(peaks)}")
+    del model, tstate, bb
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1100,6 +1411,22 @@ def main() -> int:
         launches=None, **k8, dinov3_640_vit_b=k8_dino)
     torch.cuda.empty_cache()
 
+    # -- phase 3e: the flash-attention backward (K8b), beside 3d ------------
+    k8b, k8b_calls = attention_bwd_row(B, 197, 6, 8, bf16_peak, hbm)
+    k8b_dino, k8b_dino_calls = attention_bwd_row(16, 1605, 12, 9, bf16_peak,
+                                                 hbm)
+    results["flash_attention_bwd"] = dict(
+        name="flash_attention_bwd", route="cuda",
+        source="tpupose_torch/csrc/flash_attention_bwd.cu",
+        replaces="tpupose/ops/attention.py:45 _flash -> library Pallas "
+                 "flash_attention custom VJP (jax/experimental/pallas/ops/"
+                 "tpu/flash_attention.py: _flash_attention_bwd :254, di :273, "
+                 "_flash_attention_dkv_kernel :796 pallas_call :1121, "
+                 "_flash_attention_dq_kernel :1146 pallas_call :1456; block "
+                 "sizes tpupose/ops/attention.py:53-56)",
+        launches=None, **k8b, dinov3_640_vit_b=k8b_dino)
+    torch.cuda.empty_cache()
+
     # -- phase 8: the ViTPose-S slice -----------------------------------------
     from tpupose_torch.cli.serve import build_predictor
     from tpupose_torch.models.backbones import vit as vit_mod
@@ -1164,6 +1491,10 @@ def main() -> int:
             or flash_attention.launches != 24:
         raise AssertionError("cli.serve predictor did not answer through K8")
     del vmodel, vpred, cli_pred
+    torch.cuda.empty_cache()
+
+    # -- phase 10: the ViTPose-S training slice -------------------------------
+    vit_train_phase(results)
 
     # -- phase 9: device times, measured last so that no profiler session
     # precedes the timing of any other phase -----------------------------------
@@ -1181,6 +1512,10 @@ def main() -> int:
     timed += [(k8_row, key, fn) for key, fn in k8_calls.items()]
     timed += [(k8_row["dinov3_640_vit_b"], key, fn)
               for key, fn in dino_calls.items()]
+    k8b_row = results["flash_attention_bwd"]
+    timed += [(k8b_row, key, fn) for key, fn in k8b_calls.items()]
+    timed += [(k8b_row["dinov3_640_vit_b"], key, fn)
+              for key, fn in k8b_dino_calls.items()]
     for row, key, fn in timed:
         row[key] = device_ms(fn)
     log("device ms under torch.profiler: " + json.dumps({
@@ -1190,7 +1525,10 @@ def main() -> int:
             results["affine_warp"]["crops_from_frames"]["device_ms"],
         "flash_attention": {k: k8_row[k] for k in k8_calls},
         "flash_attention_dinov3": {k: k8_row["dinov3_640_vit_b"][k]
-                                   for k in dino_calls}}))
+                                   for k in dino_calls},
+        "flash_attention_bwd": {k: k8b_row[k] for k in k8b_calls},
+        "flash_attention_bwd_dinov3": {k: k8b_row["dinov3_640_vit_b"][k]
+                                       for k in k8b_dino_calls}}))
 
     # -- phase 6 ---------------------------------------------------------------
     print(json.dumps({"kernels": list(results.values())}), flush=True)

@@ -278,11 +278,99 @@ def test_flash_attention_rejects_what_it_does_not_take(gpu):
         fused_attention(q48, q48, q48)
 
 
-def test_flash_attention_backward_raises(gpu):
-    from tpupose_torch.ops.attention import fused_attention
+def _rel_max(got, want):
+    """max |got - want| over max |want| (at least 1e-3: at L = 1 the
+    softmax is constant and dq, dk are 0 up to rounding), in float32."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-3)).item()
 
-    q = torch.randn((1, 9, 1, 64), device=gpu, dtype=torch.bfloat16,
-                    requires_grad=True)
-    out = fused_attention(q, q, q)
-    with pytest.raises(NotImplementedError, match="Queue B item 9"):
-        out.float().sum().backward()
+
+@pytest.mark.parametrize("L", [1, 63, 64, 65, 197, 1605])
+def test_flash_attention_backward_kernel(gpu, L):
+    """K8b against the plain backward (float32 on the same bf16 inputs) on
+    strided q/k/v views, and K8's log-sum-exp against torch.logsumexp of
+    the float32 scores. Tolerances: each of dq, dk, dv within 2e-2 of the
+    max |reference gradient| (the kernel rounds P and dS to bf16 before
+    its products, as the forward rounds P); the LSE within 1e-3 (float32
+    sums in another order, exp2/log2 instead of exp/log). L = 1, 63, 64,
+    65 and 197 put the padded query and key rows of the last tile in
+    every position; 1605 is the DINOv3 shape."""
+    from tpupose_torch.ops.attention import attention_backward_reference
+    from tpupose_torch.ops.cuda_attention import (_launch,
+                                                  flash_attention_backward)
+
+    B, heads = (2, 3) if L > 200 else (3, 2)
+    q, k, v = _qkv_views(B, L, heads, seed=40 + L, gpu=gpu)
+    g = torch.Generator().manual_seed(50 + L)
+    do = torch.randn((B, L, heads, 64), generator=g).to(gpu, torch.bfloat16)
+    o, lse = _launch(q, k, v, 0.125, True)
+    n0 = flash_attention_backward.launches
+    got = flash_attention_backward(q, k, v, o, lse, do, 0.125)
+    assert flash_attention_backward.launches == n0 + 1
+    torch.cuda.synchronize()
+    want = attention_backward_reference(q.float(), k.float(), v.float(),
+                                        do.float(), 0.125)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == (B, L, heads, 64) and a.dtype == torch.bfloat16
+        assert torch.isfinite(a.float()).all(), name
+        assert _rel_max(a, w) <= 2e-2, (name, _rel_max(a, w))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * 0.125
+    want_lse = torch.logsumexp(s, dim=-1) / 0.6931471805599453   # log2
+    assert lse.shape == (B, heads, L)
+    assert (lse - want_lse).abs().max().item() <= 1e-3
+
+
+def test_fused_attention_backward_on_the_card_goes_to_k8b(gpu):
+    """autograd through fused_attention on CUDA tensors: K8 saves its LSE
+    and the backward is one K8b launch; the gradients agree with autograd
+    of the plain version on the same inputs (2e-2 of the max gradient).
+    Without gradients K8 computes no LSE and K8b is never reached."""
+    from tpupose_torch.ops.attention import fused_attention
+    from tpupose_torch.ops.cuda_attention import (flash_attention,
+                                                  flash_attention_backward)
+
+    qkv = torch.randn((2, 37, 3 * 2 * 64), device=gpu, dtype=torch.bfloat16,
+                      requires_grad=True)
+    q, k, v = qkv.view(2, 37, 3, 2, 64).unbind(2)
+    do = torch.randn((2, 37, 2, 64), device=gpu, dtype=torch.bfloat16)
+    n0, b0 = flash_attention.launches, flash_attention_backward.launches
+    (g_kernel,) = torch.autograd.grad(fused_attention(q, k, v), qkv, do)
+    assert flash_attention.launches == n0 + 1
+    assert flash_attention_backward.launches == b0 + 1
+    (g_plain,) = torch.autograd.grad(fused_attention(q, k, v, impl="plain"),
+                                     qkv, do)
+    assert flash_attention_backward.launches == b0 + 1
+    torch.cuda.synchronize()
+    assert _rel_max(g_kernel, g_plain) <= 2e-2
+    with torch.no_grad():
+        fused_attention(q, k, v)
+    assert flash_attention_backward.launches == b0 + 1
+
+
+def test_vit_remat_on_the_card(gpu):
+    """A bf16 two-block DinoViT's gradients through K8/K8b with its blocks
+    checkpointed (remat) equal those without, bit for bit (K8 and K8b are
+    deterministic); with remat a step launches K8 twice per block and K8b
+    once."""
+    from tpupose_torch.models.backbones.vit import DinoViT
+    from tpupose_torch.ops.cuda_attention import (flash_attention,
+                                                  flash_attention_backward)
+
+    torch.manual_seed(0)
+    vit = DinoViT(depth=2, dim=128, heads=2).to(gpu, torch.bfloat16)
+    for blk in vit.blocks:
+        torch.nn.init.uniform_(blk.ls1.gamma, 0.2, 0.6)
+        torch.nn.init.uniform_(blk.ls2.gamma, 0.2, 0.6)
+    x = torch.randn((2, 64, 48, 3), device=gpu, dtype=torch.bfloat16)
+    grads = {}
+    for remat in (False, True):
+        vit.remat = remat
+        vit.zero_grad()
+        n0, b0 = flash_attention.launches, flash_attention_backward.launches
+        xi = x.clone().requires_grad_()
+        vit(xi)["feature_map"].float().square().sum().backward()
+        assert flash_attention.launches - n0 == (4 if remat else 2)
+        assert flash_attention_backward.launches - b0 == 2
+        grads[remat] = [xi.grad] + [p.grad for p in vit.parameters()]
+    for a, b in zip(grads[False], grads[True]):
+        assert torch.equal(a, b)

@@ -436,8 +436,15 @@ def test_int8_engine_with_vitpose_raises(classic):
 
 
 def test_remat_and_unknown_decoder_raise():
-    with pytest.raises(ValueError, match="training"):
-        ViTPose("vit_tiny", 5, device="cpu", remat=True)
+    """SimpleBaseline's remat is not ported: the Builder raises for it
+    instead of dropping it (ViTPose's remat is held in
+    tests/test_torch_vit_train.py); an unknown decoder raises."""
+    from tpupose_torch.engine.builder import Builder
+
+    cfg, _ = _cfg("model.name=simple_baseline", "model.backbone=resnet18",
+                  "train.remat=true")
+    with pytest.raises(ValueError, match="remat.*Queue A item 5"):
+        Builder(cfg, "cpu").model()
     with pytest.raises(ValueError, match="decoder"):
         ViTPose("vit_tiny", 5, "fancy", device="cpu")
 
@@ -483,12 +490,30 @@ def test_builder_builds_vitpose_s_with_the_flax_names_and_init():
     assert torch.all(vit.blocks[0].mlp.fc1.bias == 0)
 
 
-def test_trainer_refuses_vitpose():
+def test_trainer_builds_vitpose_on_the_cpu(tmp_path):
+    """The Trainer takes vitpose_s.yaml (tiny backbone): a ViTPose in
+    train mode after one step, the heatmap family, AdamW over every
+    parameter with the head/base split (training itself is held in
+    tests/test_torch_vit_train.py)."""
     from tpupose_torch.engine.trainer import Trainer
 
-    cfg, _ = _cfg("model.backbone=vit_tiny")
-    with pytest.raises(ValueError, match="ViTPose training"):
-        Trainer(cfg, device="cpu")
+    cfg, _ = _cfg("model.backbone=vit_tiny", "data.image_size=[64,48]",
+                  "model.heatmap_size=[16,12]",
+                  "model.deconv_channels=[32,32]",
+                  "train.mixed_precision=false", "train.batch_size=4",
+                  f"train.output_dir={tmp_path}")
+    tr = Trainer(cfg, device="cpu")
+    assert isinstance(tr.model, ViTPose) and tr.family == "heatmap"
+    inner = tr.state.optimizer.inner
+    assert isinstance(inner, torch.optim.AdamW)
+    assert {g["label"] for g in inner.param_groups} == {"base", "head"}
+    assert all(g["weight_decay"] == 0.1 for g in inner.param_groups)
+    assert sum(len(g["params"]) for g in inner.param_groups) == \
+        len(list(tr.model.parameters()))
+    m = tr.train_step(tr.state, tr._prepare_batch(
+        next(iter(tr.train_loader))))
+    assert tr.model.training and tr.state.step == 1
+    assert np.isfinite(m["loss"].item())
 
 
 def test_cli_serve_answers_a_request_on_the_cpu():

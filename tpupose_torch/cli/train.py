@@ -4,6 +4,8 @@ parse args -> merge YAML -> Trainer.train().
     python -m tpupose_torch.cli.train \
         --cfg tpupose/configs/method/simple_baseline.yaml \
         data.device_affine=true [--device cuda] [key=value ...]
+    python -m tpupose_torch.cli.train \
+        --cfg tpupose/configs/method/vitpose_s.yaml [train.remat=true]
 
 `--device` defaults to cuda (raises where CUDA is absent); `--device cpu`
 trains on the CPU. `--test` runs the loss-only `validate()` (the metric

@@ -108,7 +108,8 @@ class TrainConfig:
     # > 0: track an EMA of the params (fused into the train step) and use
     # it for validation/metric eval/serving. 0 disables. Typical: 0.9998.
     ema_decay: float = 0.0
-    # JAX package only so far: rematerialize backbone blocks in the backward pass:
+    # rematerialize backbone blocks in the backward pass (the port: ViTPose
+    # only; SimpleBaseline raises):
     # trades ~1 extra forward for an O(1)-block activation stash — unlocks
     # larger per-chip batches on HBM-limited configs (HRNet@384, big ViTs)
     remat: bool = False

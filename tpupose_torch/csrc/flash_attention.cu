@@ -27,91 +27,33 @@
 // shuffles, exp2f with the scale folded in), and P goes from the S
 // accumulators to the A fragments of the PV product without shared
 // memory. Rows of shared memory are padded to 72 elements (144 bytes) so
-// that the 8 rows an ldmatrix reads fall in distinct banks.
+// that the 8 rows an ldmatrix reads fall in distinct banks. The fragment
+// helpers are shared with the backward (mma_bf16.cuh).
+//
+// For training, the kernel also writes each row's log-sum-exp (float32,
+// (B, H, L)), as the library's forward saves l and m for its VJP
+// (flash_attention.py:248); the backward (flash_attention_bwd.cu, K8b)
+// recomputes P from it. Serving passes a null pointer and nothing else
+// changes.
 #include <math.h>
 
-#include "common.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
-constexpr int D = 64;        // head dim
-constexpr int BQ = 64;       // queries per block (16 per warp)
-constexpr int BK = 64;       // keys per K/V tile
-constexpr int WARPS = 4;
-constexpr int LDS = D + 8;   // padded shared-memory row, in elements
+using namespace fa;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+constexpr int BQ = TILE;     // queries per block (16 per warp)
+constexpr int BK = TILE;     // keys per K/V tile
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const int n = valid ? 16 : 0;   // 0: zero-fill, nothing read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// d += a (16x16, row) * b (16x8, col); bf16 in, float32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  bf162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// rows [r0, r0 + 64) of a (L, D) slice with row stride `ld` elements into
-// a padded shared tile; rows >= L are zero-filled. 128 threads, 4 x 16 B.
-__device__ __forceinline__ void load_tile(bf16* s, const bf16* g, long long ld,
-                                          int r0, int L) {
-#pragma unroll
-  for (int i = 0; i < (BK * D / 8) / (WARPS * 32); ++i) {
-    const int c = threadIdx.x + i * WARPS * 32;
-    const int row = c >> 3, col = (c & 7) * 8;
-    const bool valid = r0 + row < L;
-    const bf16* src = valid ? g + (long long)(r0 + row) * ld + col : g;
-    cp_async16(s + row * LDS + col, src, valid);
-  }
-}
-
+template <bool kLse>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ o,
-                       int L, int H, long long qsb, long long qsl,
-                       long long qsh, long long ksb, long long ksl,
-                       long long ksh, long long vsb, long long vsl,
-                       long long vsh, float scale_log2) {
+                       float* __restrict__ lse, int L, int H, long long qsb,
+                       long long qsl, long long qsh, long long ksb,
+                       long long ksl, long long ksh, long long vsb,
+                       long long vsl, long long vsh, float scale_log2) {
   __shared__ __align__(16) bf16 sQ[BQ * LDS];
   __shared__ __align__(16) bf16 sK[2][BK * LDS];
   __shared__ __align__(16) bf16 sV[2][BK * LDS];
@@ -130,10 +72,7 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   uint32_t qf[D / 16][4];          // this warp's 16 rows of Q, A fragments
   float acc_o[D / 8][4];           // O accumulators, 8 dim tiles of 16x8
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_o[j][e] = 0.f;
+  zero(acc_o);
   float m_run[2] = {-INFINITY, -INFINITY};   // rows lane/4 and lane/4 + 8
   float l_run[2] = {0.f, 0.f};               // this lane's partial sums
 
@@ -148,31 +87,12 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (t == 0) {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        ldmatrix_x4(qf[kk], sQ + (warp * 16 + (lane & 15)) * LDS + kk * 16 +
-                                (lane >> 4) * 8);
-    }
+    if (t == 0) load_a_rows(qf, sQ, warp, lane);
 
     // S = Q K^T: 16 rows x 64 keys per warp, 8 key tiles of 8
     float s[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    const bf16* kt = sK[buf];
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < BK / 16; ++np) {
-        uint32_t r[4];
-        ldmatrix_x4(r, kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS +
-                           kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], qf[kk], r[0], r[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], r[2], r[3]);
-      }
-    }
+    zero(s);
+    mma_rows_nt(s, qf, sK[buf], lane);
 
     // mask keys >= L (only the last tile can hold any)
     const int k0 = t * BK;
@@ -223,27 +143,14 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     // O += P V: P's accumulators become A fragments, 16 keys per step
-    const bf16* vt = sV[buf];
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                        pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                        pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                        pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, vt + (kk * 16 + (lane & 7) +
-                                   ((lane >> 3) & 1) * 8) * LDS +
-                                 np * 16 + (lane >> 4) * 8);
-        mma_bf16(acc_o[2 * np], pa, r[0], r[1]);
-        mma_bf16(acc_o[2 * np + 1], pa, r[2], r[3]);
-      }
-    }
+    mma_acc_nn(acc_o, s, sV[buf], lane);
     __syncthreads();   // the next iteration refills the other buffer
   }
 
-  // epilogue: divide by the row sums, store rows < L as bf16
+  // epilogue: divide by the row sums, store rows < L as bf16; with kLse,
+  // each row's log-sum-exp in the kernel's own domain, log2 with the
+  // scale folded in: lse = m * scale_log2 + log2(l), so that the backward
+  // recomputes P = exp2(s * scale_log2 - lse)
   float inv[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -251,35 +158,34 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[i] = 1.f / l;
-  }
-  const long long osl = (long long)H * D;
-  bf16* og = o + ((long long)b * L * H + h) * D;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
     const int row = q0 + warp * 16 + (lane >> 2) + i * 8;
-    if (row >= L) continue;
-    bf16* orow = og + row * osl + (lane & 3) * 2;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<bf162*>(orow + j * 8) = __floats2bfloat162_rn(
-          acc_o[j][2 * i] * inv[i], acc_o[j][2 * i + 1] * inv[i]);
+    if (kLse && (lane & 3) == 0 && row < L)
+      lse[((long long)b * H + h) * L + row] =
+          fmaf(m_run[i], scale_log2, log2f(l));
   }
+  store_rows(o, acc_o, inv[0], inv[1], b, h, H, L, q0 + warp * 16, lane);
 }
 
 }  // namespace
 
 // q/k/v: bf16 (B, L, H, 64) with unit stride on the last dim, the other
 // strides (in elements) given, every row 16-byte aligned; o: contiguous
-// bf16 (B, L, H, 64). scale multiplies q k^T.
+// bf16 (B, L, H, 64); lse: null, or contiguous float32 (B, H, L) that
+// receives each row's log2-domain log-sum-exp of scale * q k^T
+// (log2(sum_j exp2(scale * log2(e) * s_j))). scale multiplies q k^T.
 extern "C" int tp_flash_attention(const void* q, const void* k, const void* v,
                                   void* o, int B, int L, int H, long long qsb,
                                   long long qsl, long long qsh, long long ksb,
                                   long long ksl, long long ksh, long long vsb,
                                   long long vsl, long long vsh, float scale,
-                                  void* stream) {
+                                  void* lse, void* stream) {
   const dim3 grid((L + BQ - 1) / BQ, H, B);
-  flash_attention_kernel<<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, L, H, qsb, qsl,
-      qsh, ksb, ksl, ksh, vsb, vsl, vsh, scale * 1.4426950408889634f);
+  // serving (no lse) runs an instantiation without the store
+  auto kernel = lse ? flash_attention_kernel<true>
+                    : flash_attention_kernel<false>;
+  kernel<<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
+      L, H, qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh,
+      scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }

@@ -45,7 +45,9 @@ class Builder:
     def model(self):
         """SimpleBaseline or ViTPose with flax's default init drawn from a
         generator seeded by train.seed, float32 master weights, and bf16
-        autocast when train.mixed_precision (else float32 throughout)."""
+        autocast when train.mixed_precision (else float32 throughout).
+        train.remat checkpoints ViTPose's blocks; SimpleBaseline's remat
+        is not ported and raises."""
         from tpupose_torch.models.simple_baseline import (SimpleBaseline,
                                                           init_like_flax)
         from tpupose_torch.models.vitpose import (ViTPose,
@@ -58,6 +60,10 @@ class Builder:
         if m.pretrained:
             raise _unported("model.pretrained", m.pretrained,
                             "Queue A item 12")
+        remat = self.cfg.train.remat
+        if remat and m.name != "vitpose":
+            raise _unported("train.remat with model", m.name,
+                            "Queue A item 5")
         dtype = (torch.bfloat16 if self.cfg.train.mixed_precision
                  else torch.float32)
         g = torch.Generator().manual_seed(self.cfg.train.seed)
@@ -65,7 +71,8 @@ class Builder:
             model = ViTPose(m.backbone, m.num_keypoints, m.decoder,
                             tuple(m.deconv_channels)[:2],
                             freeze_backbone=m.freeze_backbone, dtype=dtype,
-                            device="cpu", param_dtype=torch.float32)
+                            device="cpu", param_dtype=torch.float32,
+                            remat=remat)
             init_vitpose_like_flax(model, g)
         else:
             model = SimpleBaseline(m.backbone, m.num_keypoints,

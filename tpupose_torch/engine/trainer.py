@@ -1,5 +1,5 @@
-"""Trainer: the epoch loop for the heatmap family (counterpart of
-tpupose/engine/trainer.py).
+"""Trainer: the epoch loop for the heatmap family, SimpleBaseline and
+ViTPose (counterpart of tpupose/engine/trainer.py).
 
 Ported: construction (builder, datasets and loaders, model, optimizer
 with per-group schedules, EMA, the train and eval steps, log file,
@@ -11,7 +11,10 @@ with the SIGTERM/SIGINT checkpoint guard, `save_checkpoint` and
 distillation, pretrained weights, the device mesh, and the metric
 `evaluate()` (so `eval.run_metrics` raises).
 
-Runs on `device` (default "cuda"; raises where CUDA is absent).
+Runs on `device` (default "cuda"; raises where CUDA is absent). On the
+card a ViTPose step runs the flash-attention kernels K8 (forward) and K8b
+(backward) in every block; `train.remat` recomputes each block, K8
+included, in the backward.
 """
 
 from __future__ import annotations
@@ -43,11 +46,6 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.builder = builder or Builder(cfg, self.device)
-        if cfg.model.name == "vitpose":
-            raise ValueError("ViTPose training is not ported to "
-                             "tpupose_torch yet: it needs the flash-"
-                             "attention backward kernel (ROADMAP Queue A "
-                             "item 9, ViTPose training; Queue B item 9)")
         if cfg.train.distill_cfg:
             raise ValueError("distillation (train.distill_cfg) is not ported "
                              "to tpupose_torch yet (ROADMAP Queue A item 5)")

@@ -16,8 +16,12 @@ Where the port must not differ from flax:
   - token order [cls, storage x 4, patches row-major].
 
 Attention goes through ops/attention.fused_attention: the hand-written
-flash kernel (K8) on the card, the plain version on the CPU.
-`RopeAttention.impl` selects "kernel" (default) or "plain".
+flash kernels on the card (K8 forward, K8b backward), the plain version
+on the CPU. `RopeAttention.impl` selects "kernel" (default) or "plain".
+`DinoViT(remat=True)` checkpoints each block while gradients are
+recorded (torch.utils.checkpoint, non-reentrant): the counterpart of
+tpupose's `remat_call` (tpupose/models/remat.py). It keeps the parameter
+names, and the block's forward (K8 included) runs again in the backward.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tpupose_torch.ops.attention import fused_attention
 
@@ -139,13 +144,16 @@ class DinoViT(nn.Module):
     (H, W multiples of patch_size) -> dict with "cls" (B, C), "storage"
     (B, S, C), "patches" (B, N, C), "feature_map" (B, H/p, W/p, C) and,
     when `intermediates` names blocks, "intermediates" {i: (B, H/p, W/p,
-    C)} of those blocks' outputs (before the final norm)."""
+    C)} of those blocks' outputs (before the final norm). `remat`
+    recomputes each block in the backward instead of keeping its
+    activations."""
 
     def __init__(self, depth: int = 12, dim: int = 384, heads: int = 6,
                  patch_size: int = 16, num_storage_tokens: int = 4,
-                 intermediates: Sequence[int] = ()):
+                 intermediates: Sequence[int] = (), remat: bool = False):
         super().__init__()
         self.dim, self.heads, self.patch_size = dim, heads, patch_size
+        self.remat = remat
         self.num_prefix = 1 + num_storage_tokens
         self.intermediates = tuple(intermediates)
         self.patch_embed = PatchEmbed(dim, patch_size)
@@ -180,8 +188,12 @@ class DinoViT(nn.Module):
                                   device=x.device)
         n = self.num_prefix
         inter = {}
+        remat = self.remat and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
-            x = blk(x, sin, cos)
+            if remat:
+                x = checkpoint(blk, x, sin, cos, use_reentrant=False)
+            else:
+                x = blk(x, sin, cos)
             if i in self.intermediates:
                 inter[i] = x[:, n:].reshape(B, ph, pw, self.dim)
         x = self.norm(x)

@@ -48,9 +48,11 @@ class ViTPose(nn.Module):
     CUDA is absent) with parameters in `param_dtype` (default `dtype`,
     the serving build); with float32 parameters and a bf16 `dtype` the
     forward runs under bf16 autocast, the SimpleBaseline's policy.
-    `freeze_backbone` is kept for the config's sake (serving ignores it);
-    `remat` (activation checkpointing) belongs to training and raises.
-    Weights: the module initializers, `generator` (seeded, non-trivial
+    `freeze_backbone` stops the gradient at the backbone's feature map
+    (JAX's stop_gradient): the backbone runs without recording a graph,
+    so no backbone gradient is computed. `remat` checkpoints each ViT
+    block in training (DinoViT(remat=True)); it changes no parameter
+    name and no value. Weights: the module initializers, `generator` (seeded, non-trivial
     layer scales, LayerNorm affines and BatchNorm statistics),
     `init_vitpose_like_flax`, or a state dict
     (utils/convert.from_flax_vitpose)."""
@@ -64,10 +66,6 @@ class ViTPose(nn.Module):
                  param_dtype: torch.dtype | None = None,
                  remat: bool = False):
         super().__init__()
-        if remat:
-            raise ValueError("ViTPose remat (activation checkpointing) is a "
-                             "training option; ViTPose training is not "
-                             "ported (ROADMAP Queue A item 9)")
         dev = resolve_device(device)
         self.backbone_name = backbone
         self.num_keypoints = num_keypoints
@@ -76,7 +74,7 @@ class ViTPose(nn.Module):
         self.compute_dtype = dtype
         self.param_dtype = param_dtype or dtype
         size = backbone.replace("dinov3_", "").replace("vit_", "")
-        self.backbone = DinoViT.from_size(size)
+        self.backbone = DinoViT.from_size(size, remat=remat)
         dim = self.backbone.dim
         if decoder == "classic":
             self.head = HeatmapHead(dim, num_keypoints, deconv_channels)
@@ -92,7 +90,11 @@ class ViTPose(nn.Module):
         self.eval()
 
     def _forward(self, x):
-        feats = self.backbone(x)["feature_map"]            # (B, h, w, C)
+        if self.freeze_backbone:
+            with torch.no_grad():
+                feats = self.backbone(x)["feature_map"]
+        else:
+            feats = self.backbone(x)["feature_map"]        # (B, h, w, C)
         return self.head(feats.permute(0, 3, 1, 2))
 
     def forward(self, x):
