@@ -5,7 +5,10 @@
 Phases (any failure exits non-zero; nothing is caught and hidden):
   1. the card's name and power limit (nvidia-smi) and torch's device name;
   2. build every hand-written kernel from tpupose_torch/csrc with nvcc
-     (into build/tpupose_torch/) and print the build seconds;
+     (into build/tpupose_torch/) and print the build seconds; count the
+     HGMMA (wgmma) instructions in the SASS of the bridge (K3) and
+     flash-attention (K8) libraries by cuobjdump, where the toolkit has
+     it, and fail if either has none;
   3. each kernel of the SimpleBaseline-R50 256x192 serving path at B=128
      on seeded inputs: held against its plain PyTorch version at a stated
      tolerance, timed with CUDA events (median of 20 after warm-up) beside
@@ -41,6 +44,14 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
      must have risen after; the kernel forward's heatmaps are held against
      the model's plain forward (max rel 0.06, mean rel 5e-3, the bounds of
      tests/test_pallas_stem.py); coordinates must be finite, (32, 17, 2);
+  4c. (run after phase 7, as every phase added since) the R50 CLI path:
+     cli.serve.build_predictor on the simple_baseline config (flax init,
+     float32 weights under bf16 autocast, as `python -m
+     tpupose_torch.cli.serve` builds it) answers one flip request, and
+     the launch counts of K1 (stem), K2 (layer1), K3 (bridge) and K4
+     (decode), set to 0 before, must each have risen; its kernel-route
+     heatmaps on 32 crops against the model's own autocast forward (max
+     rel 0.06, mean rel 5e-3);
   4b. the int8 slice: HeatmapPredictor(..., int8_engine=engine) with flip
      test on 32 crops, counts of stem_pool, run_chunk, run_deconv and
      dark_decode set to 0 before and risen after; the engine's heatmaps
@@ -105,12 +116,13 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
      SDPA at both shapes (their `ms`, `plain_ms`, `library_ms`: a K8
      launch is shorter than its wrapper's Python, so CUDA events around
      one call measure the host), the same for K8b (its three launches
-     together) against the plain backward and SDPA's backward, and K4 and
-     K7 beside their event times;
+     together) against the plain backward and SDPA's backward, K3 and its
+     four cuDNN convolutions, K7 and F.grid_sample (both warps), and K4,
+     beside their event times;
   6. a JSON line of every kernel's numbers, then the last line
      {"ok": true, "device": {...}}.
 
-Phases run in the order 1-5, 7, 3d, 3e, 8, 10, 9, 6. Exits non-zero
+Phases run in the order 1-5, 7, 3d, 3e, 4c, 8, 10, 9, 6. Exits non-zero
 without printing a result where CUDA is unavailable. Needs one card;
 imports nothing of JAX. Writes only under build/ of the checkout (the
 kernels and the phase-7 and phase-10 checkpoints, removed at the end).
@@ -224,6 +236,26 @@ def device_ms(fn, iters=20):
             total += b - max(a, end)
             end = b
     return total / 1e3 / iters
+
+
+def hgmma_check(build):
+    """Count the HGMMA (wgmma) instructions in the SASS of the libraries
+    built from csrc/bridge.cu and csrc/flash_attention.cu, by cuobjdump
+    where the toolkit has it beside nvcc; a library without any fails."""
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        log(f"{tool} not found: HGMMA in the SASS not checked")
+        return
+    counts = {}
+    for src in ("bridge.cu", "flash_attention.cu"):
+        sass = subprocess.run([str(tool), "-sass", str(build._target(src))],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+        counts[src] = sass.count("HGMMA")
+    log(f"HGMMA instructions in the SASS (cuobjdump -sass): "
+        f"{json.dumps(counts)}")
+    if not all(counts.values()):
+        raise AssertionError(f"a wgmma kernel has no HGMMA: {counts}")
 
 
 def rel_err(got, want):
@@ -866,6 +898,7 @@ def main() -> int:
     _build.build_all()
     log(f"build: {len(_build.SOURCES)} sources in "
         f"{_build.build_seconds:.2f} s")
+    hgmma_check(_build)
 
     # -- phase 3: kernels at B=128 -------------------------------------------
     g = torch.Generator().manual_seed(0)
@@ -912,14 +945,15 @@ def main() -> int:
              flops=B * 2 * sum(block_macs(w, p2, p2) for w in fw["layer1"]),
              nbytes=nbytes(x1, fw["layer1"]) + B * p2 * 256 * 2,
              rate=bf16_peak, tol=2e-2),
-        dict(name="bridge", source="tpupose_torch/csrc/bottleneck.cu",
+        dict(name="bridge", source="tpupose_torch/csrc/bridge.cu",
              replaces="tpupose/ops/pallas_bridge.py:106 _bridge_kernel "
                       "(bridge_pallas :144, pallas_call :159)",
              call=lambda: bridge(x2, fw["bridge"]),
              plain=lambda: bridge_reference(x2, fw["bridge"]),
              library=lambda: library_blocks(x2, brc, (2,)),
              flops=B * 2 * block_macs(fw["bridge"], p3, p2),
-             nbytes=nbytes(x2, fw["bridge"]) + B * p3 * 512 * 2,
+             nbytes=nbytes(x2, {k: v for k, v in fw["bridge"].items()
+                                if k != "tmaps"}) + B * p3 * 512 * 2,
              rate=bf16_peak, tol=2e-2),
     ]
     results = {}
@@ -1427,8 +1461,41 @@ def main() -> int:
         launches=None, **k8b, dinov3_640_vit_b=k8b_dino)
     torch.cuda.empty_cache()
 
-    # -- phase 8: the ViTPose-S slice -----------------------------------------
+    # -- phase 4c (run after phase 7, as every new phase): cli.serve's R50 --
     from tpupose_torch.cli.serve import build_predictor
+
+    cfg = default_config()
+    cfg.merge_dict(SIMPLE_BASELINE)
+    cfg.freeze()
+    cli_r50 = build_predictor(cfg, "", device="cuda")
+    for wfn in wrappers.values():
+        wfn.launches = 0
+    c1, s1 = cli_r50(crops[:1])
+    counts = {n: wfn.launches for n, wfn in wrappers.items()}
+    log(f"cli.serve.build_predictor (simple_baseline config, flax init, "
+        f"float32 weights under bf16 autocast): one flip request, launches "
+        f"{counts}, coords {c1.shape}")
+    if c1.shape != (1, K, 2) or not np.isfinite(c1).all() \
+            or not np.isfinite(s1).all() or min(counts.values()) <= 0:
+        raise AssertionError("cli.serve's R50 predictor did not answer "
+                             "through K1, K2, K3 and K4")
+    for n, c in counts.items():
+        results[n]["launches_cli"] = c
+    xs = normalize_images(imgs[:32])
+    hm_k = cli_r50.evaluator.forward(xs).float()
+    with torch.no_grad():
+        hm_p = cli_r50.evaluator.model(xs).float()
+    _, mrel, meanrel = rel_err(hm_k, hm_p)
+    log(f"cli.serve R50 heatmaps, kernel route vs the model's autocast "
+        f"forward: max_rel {mrel:.4g} (<0.06), mean_rel {meanrel:.4g} "
+        f"(<5e-3)")
+    if not (torch.isfinite(hm_k).all() and mrel < 0.06 and meanrel < 5e-3):
+        raise AssertionError("cli.serve R50 heatmaps disagree with the "
+                             "model's own forward")
+    del cli_r50, hm_k, hm_p
+    torch.cuda.empty_cache()
+
+    # -- phase 8: the ViTPose-S slice -----------------------------------------
     from tpupose_torch.models.backbones import vit as vit_mod
     from tpupose_torch.models.vitpose import ViTPose
     from tpupose_torch.ops.cuda_attention import flash_attention
@@ -1509,6 +1576,27 @@ def main() -> int:
               lambda: affine_warp(imgs, wm, (H, W))),
              (results["affine_warp"]["crops_from_frames"], "device_ms",
               lambda: crops_from_frames(frames, cm, (H, W)))]
+    x2 = layer1_reference(stem_pool_reference(normalize_images(imgs),
+                                              fw["stem"]), fw["layer1"])
+    brc = [as_conv_weights(fw["bridge"])]
+    src_f = imgs.permute(0, 3, 1, 2).float().contiguous()
+    grid = grid_for(wm, (H, W), (H, W))
+    rep_f = frames.permute(0, 3, 1, 2).float().repeat_interleave(D, 0) \
+        .contiguous()
+    cgrid = grid_for(cm, (H, W), (FH, FW))
+
+    def sample(src, grd):
+        return F.grid_sample(src, grd, mode="bilinear", padding_mode="zeros",
+                             align_corners=True)
+
+    timed += [(results["bridge"], "device_ms",
+               lambda: bridge(x2, fw["bridge"])),
+              (results["bridge"], "library_device_ms",
+               lambda: library_blocks(x2, brc, (2,))),
+              (results["affine_warp"], "library_device_ms",
+               lambda: sample(src_f, grid)),
+              (results["affine_warp"]["crops_from_frames"],
+               "library_device_ms", lambda: sample(rep_f, cgrid))]
     timed += [(k8_row, key, fn) for key, fn in k8_calls.items()]
     timed += [(k8_row["dinov3_640_vit_b"], key, fn)
               for key, fn in dino_calls.items()]
@@ -1519,6 +1607,11 @@ def main() -> int:
     for row, key, fn in timed:
         row[key] = device_ms(fn)
     log("device ms under torch.profiler: " + json.dumps({
+        "bridge": {k: results["bridge"][k]
+                   for k in ("device_ms", "library_device_ms")},
+        "affine_warp_grid_sample": results["affine_warp"]["library_device_ms"],
+        "crops_from_frames_grid_sample":
+            results["affine_warp"]["crops_from_frames"]["library_device_ms"],
         "dark_decode": results["dark_decode"]["device_ms"],
         "affine_warp": results["affine_warp"]["device_ms"],
         "crops_from_frames":

@@ -10,7 +10,9 @@ are compiled with ops/_build.py's flags into build/k8_ab/ and loaded with
 ctypes; the script detects which C signature each has (the LSE pointer
 came with the backward, K8b). On seeded bf16 q/k/v at the ViTPose-S shape
 (128, 197, 6, 64) and the DINOv3 640x640 ViT-B shape (16, 1605, 12, 64)
-it checks that both give the same o (bit for bit) and times, by device
+it checks that both o agree with the plain version (float32 on the same
+bf16 inputs) within 2e-2, as chip_smoke.py holds K8 (two designs sum in
+other orders, so they need not agree bit for bit), and times, by device
 time under torch.profiler (chip_smoke.device_ms), rounds of: this
 checkout without the LSE, the other, the other, this checkout without
 the LSE, then this checkout with the LSE (the training forward). Prints
@@ -79,6 +81,7 @@ def main() -> int:
         print("k8_ab: CUDA is not available", file=sys.stderr)
         return 2
     from chip_smoke import device_ms
+    from tpupose_torch.ops.attention import attention_reference
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -95,18 +98,20 @@ def main() -> int:
         lse = torch.empty((B, H, L), dtype=torch.float32, device="cuda")
         a, b = caller(this, q, k, v), caller(other, q, k, v)
         a_lse = caller(this, q, k, v, lse)
-        same = torch.equal(a().clone(), b().clone()) and \
-            torch.equal(a_lse().clone(), b().clone())
-        torch.cuda.synchronize()
-        if not same:
-            raise AssertionError(f"{(B, L, H)}: the two kernels' o differ")
+        want = attention_reference(q.float(), k.float(), v.float(), 0.125)
+        errs = {name: (fn().float() - want).abs().max().item()
+                for name, fn in (("this", a), ("other", b),
+                                 ("this_lse", a_lse))}
+        if not all(e <= 2e-2 for e in errs.values()):
+            raise AssertionError(f"{(B, L, H)}: max abs err vs the plain "
+                                 f"version {errs} (tol 2e-2)")
         rounds = []
         for _ in range(args.rounds):
             r = {"this": device_ms(a), "other": device_ms(b)}
             r["other_2"], r["this_2"] = device_ms(b), device_ms(a)
             r["this_lse"] = device_ms(a_lse)
             rounds.append(r)
-        out[f"{B}x{L}x{H}"] = rounds
+        out[f"{B}x{L}x{H}"] = {"max_abs_err": errs, "rounds": rounds}
     print(json.dumps(out), flush=True)
     return 0
 

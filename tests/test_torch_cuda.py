@@ -65,6 +65,40 @@ def test_layer1_and_bridge_kernels(card):
     assert _rel(bridge(y, wb), bridge_reference(y, wb)) < 2e-2
 
 
+@pytest.mark.parametrize("B", [1, 3, 128])
+def test_bridge_kernel(card, B):
+    """K3 (csrc/bridge.cu: wgmma products fed by TMA, clusters of two
+    blocks) against bridge_reference at 64x48x256 inputs: B=1 is one
+    cluster per pair of tiles of one image, B=128 the serving batch."""
+    from tpupose_torch.ops.cuda_bridge import (bridge, bridge_reference,
+                                               fold_bridge_weights)
+
+    g = torch.Generator().manual_seed(10 + B)
+    x = torch.rand((B, 64, 48, 256), generator=g).cuda().to(torch.bfloat16)
+    w = fold_bridge_weights(card.backbone)
+    n0 = bridge.launches
+    got = bridge(x, w)
+    assert bridge.launches == n0 + 1
+    torch.cuda.synchronize()
+    assert got.shape == (B, 32, 24, 512) and got.dtype == torch.bfloat16
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, bridge_reference(x, w)) < 2e-2
+
+
+def test_bridge_rejects_what_it_does_not_take(card):
+    from tpupose_torch.ops.cuda_bridge import bridge, fold_bridge_weights
+
+    w = fold_bridge_weights(card.backbone)
+    x = torch.zeros((1, 48, 48, 256), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="even count"):
+        bridge(x, w)                        # 3 x 3 tiles of 8 x 8
+    with pytest.raises(ValueError, match="bfloat16"):
+        bridge(torch.zeros((1, 64, 48, 256), device="cuda"), w)
+    plain = {k: v for k, v in w.items() if k != "tmaps"}
+    with pytest.raises(ValueError, match="tensor maps"):
+        bridge(x.new_zeros((1, 64, 48, 256)), plain)
+
+
 def test_dark_decode_kernel(card):
     from tpupose_torch.ops.cuda_decode import (dark_decode,
                                                dark_decode_reference)
@@ -228,27 +262,40 @@ def _qkv_views(B, L, heads, seed, gpu):
     return qkv.view(B, L, 3, heads, 64).unbind(2)
 
 
-@pytest.mark.parametrize("L", [1, 63, 64, 65, 197, 1605])
-def test_flash_attention_kernel(gpu, L):
+@pytest.mark.parametrize("with_lse", [False, True], ids=["serve", "lse"])
+@pytest.mark.parametrize("L", [1, 63, 64, 65, 127, 128, 129, 197, 1605])
+def test_flash_attention_kernel(gpu, L, with_lse):
     """K8 against the plain version (float32 softmax on the same bf16
-    inputs) on strided views, B*heads > 1. Tolerance 2e-2 absolute, the
+    inputs) on strided views, B*heads > 1, with the null-LSE serving
+    instantiation and with the LSE store. Tolerance 2e-2 absolute, the
     bf16 bound of tests/test_fused_attention.py::test_jit_and_vit_shapes:
     the kernel rounds P to bf16 before the PV product and the output to
-    bf16."""
+    bf16; the LSE within 1e-3 of torch.logsumexp of the float32 scores
+    (over ln 2: the kernel's log2 domain). L around 64 and 128 puts the
+    ragged edge of the key tiles and of the two warpgroups' query tiles in
+    every position; 1605 is the DINOv3 shape."""
     from tpupose_torch.ops.attention import attention_reference
-    from tpupose_torch.ops.cuda_attention import flash_attention
+    from tpupose_torch.ops.cuda_attention import _launch, flash_attention
 
     B, heads = (2, 3) if L > 200 else (3, 2)
     q, k, v = _qkv_views(B, L, heads, seed=20 + L, gpu=gpu)
     assert not q.is_contiguous()
     n0 = flash_attention.launches
-    got = flash_attention(q, k, v, 0.125)
+    if with_lse:
+        got, lse = _launch(q, k, v, 0.125, True)
+    else:
+        got = flash_attention(q, k, v, 0.125)
     assert flash_attention.launches == n0 + 1
     torch.cuda.synchronize()
     want = attention_reference(q, k, v, 0.125)
     assert got.shape == (B, L, heads, 64) and got.dtype == torch.bfloat16
     assert torch.isfinite(got.float()).all()
     assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    if with_lse:
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * 0.125
+        want_lse = torch.logsumexp(s, dim=-1) / 0.6931471805599453
+        assert lse.shape == (B, heads, L)
+        assert (lse - want_lse).abs().max().item() <= 1e-3
 
 
 def test_fused_attention_on_the_card_goes_to_the_kernel(gpu):

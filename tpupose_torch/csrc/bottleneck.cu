@@ -1,38 +1,32 @@
-// Fused ResNet bottleneck for Hopper: 1x1 -> 3x3 (stride S, pad 1) -> 1x1,
+// Fused ResNet bottleneck for Hopper: 1x1 -> 3x3 (pad 1) -> 1x1, stride 1,
 // BatchNorm folded into weights and biases, ReLU after the first two
-// convs, then the residual (identity, or a 1x1 stride-S downsample conv)
-// added before the last ReLU. NHWC bf16 in and out; bf16 tensor-core
-// products (wmma m8n32k16) with float32 accumulation.
+// convs, then the residual (identity, or a 1x1 downsample conv) added
+// before the last ReLU. NHWC bf16 in and out; bf16 tensor-core products
+// (wmma m8n32k16) with float32 accumulation.
 //
-// Replaces two TPU kernels:
-//   - tpupose/ops/pallas_layer1.py `_layer1_kernel` (`layer1_pallas`):
-//     ResNet-50 layer1 = three launches of this kernel (block 0 with the
-//     downsample, blocks 1-2 with identity);
-//   - tpupose/ops/pallas_bridge.py `_bridge_kernel` (`bridge_pallas`):
-//     block2_0 = one launch with stride 2 and the downsample.
-// The TPU forms keep a whole image in VMEM and need im2col buffers, lane
-// padding and 0/1 selection matmuls for the stride 2 (Mosaic has no
-// strided reads). Here a block owns an output tile and its halo in shared
-// memory; stride 2 is just a fragment row stride of two pixels.
+// Replaces tpupose/ops/pallas_layer1.py `_layer1_kernel` (`layer1_pallas`):
+// ResNet-50 layer1 = three launches of this kernel (block 0 with the
+// downsample, blocks 1-2 with identity). (block2_0, the stride-2 bridge,
+// has its own kernel for Hopper: bridge.cu.) The TPU form keeps a whole
+// image in VMEM and needs im2col buffers and lane padding; here a block
+// owns an output tile and its halo in shared memory.
 //
 // What bounds it on the H100: layer1 is 654 MMAC per 256x192 image over
-// ~2 MB moved (~650 operations per byte), block2_0 365 MMAC over 2.4 MB
-// (~300): both at or above the bf16 ridge (~295), so the tensor cores
-// bound them. This version uses the warp-level wmma API (mma.sync, not
-// wgmma) and one or two blocks per SM, so it stays far from that bound;
-// wgmma with TMA-fed tiles and a persistent grid is the later step.
+// ~2 MB moved (~650 operations per byte), above the bf16 ridge (~295), so
+// the tensor cores bound it. This version uses the warp-level wmma API
+// (mma.sync, not wgmma) and two blocks per SM, so it stays far from that
+// bound; wgmma with TMA-fed tiles (as bridge.cu) is the later step.
 //
-// Design: one block (8 warps) per (image, TH x 8 output tile).
-//   1. load the input halo ((TH-1)*S+3) x (7*S+3) x CIN into shared memory
-//      (zeros outside the image);
+// Design: one block (8 warps) per (image, 8 x 8 output tile).
+//   1. load the input halo 10 x 10 x CIN into shared memory (zeros outside
+//      the image);
 //   2. conv1 over every halo pixel -> h1 in shared memory (bf16), zero at
 //      halo pixels outside the image, which is conv2's zero padding;
 //   3. conv2: K runs over the 9 taps; for each tap the A fragment is 8
-//      output pixels of one row, read from h1 with a row stride of S
-//      pixels -> h2 (bf16);
+//      output pixels of one row, read from h1 -> h2 (bf16);
 //   4. conv3 (+ downsample: K continues over the halo's centre pixels,
-//      read with stride S, into the same float32 accumulators), bias,
-//      identity, ReLU -> the only write to device memory.
+//      into the same float32 accumulators), bias, identity, ReLU -> the
+//      only write to device memory.
 // Each conv is one block-wide GEMM whose weights stream through a
 // double-buffered shared-memory stage in K-chunks (cp.async), so the
 // block reads every weight from L2 once; each warp keeps a fixed set of
@@ -84,10 +78,9 @@ struct Cfg {
   static_assert(SMEM <= 232448, "shared memory");
 };
 
-// variant 0: layer1 block 0; 1: layer1 blocks 1-2; 2: block2_0
+// variant 0: layer1 block 0; 1: layer1 blocks 1-2
 typedef Cfg<64, 64, 256, 1, 8, true, 1, 2, 64, 16, 2> CfgL1B0;
 typedef Cfg<256, 64, 256, 1, 8, false, 1, 2, 64, 16, 2> CfgL1B1;
-typedef Cfg<256, 128, 512, 2, 4, true, 2, 2, 64, 32, 1> CfgBridge;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -302,7 +295,6 @@ int launch(const void* x, const void* w1, const void* b1, const void* w2, const 
 
 // variant 0: ResNet-50 layer1 block 0   (64 -> 64 -> 256, stride 1, downsample)
 // variant 1: ResNet-50 layer1 blocks 1-2 (256 -> 64 -> 256, stride 1, identity)
-// variant 2: ResNet-50 block2_0          (256 -> 128 -> 512, stride 2, downsample)
 // Weights bf16 row-major [K][N]: w1 (CIN, CM), w2 (3, 3, CM, CM), w3 (CM, COUT),
 // wds (CIN, COUT) (ignored by variant 1); biases float32, b3 already holds
 // the downsample's bias. x (B, H, W, CIN), out (B, Ho, Wo, COUT), bf16 NHWC.
@@ -314,7 +306,6 @@ extern "C" int tp_bottleneck(const void* x, const void* w1, const void* b1, cons
   switch (variant) {
     case 0: return launch<CfgL1B0>(x, w1, b1, w2, b2, w3, b3, wds, out, B, H, W, s);
     case 1: return launch<CfgL1B1>(x, w1, b1, w2, b2, w3, b3, wds, out, B, H, W, s);
-    case 2: return launch<CfgBridge>(x, w1, b1, w2, b2, w3, b3, wds, out, B, H, W, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -2,11 +2,13 @@
 heatmap family): normalize -> forward (+ flipped forward, merge) -> DARK
 decode -> back-projection to source coordinates.
 
-For a SimpleBaseline-R50 at 256x192 (bf16 on the card; any dtype on the
-CPU, where the kernels' plain versions run) the forward is the composed
-kernel forward `fast_r50_stem_apply` (fused stem+pool, layer1 and
-block2_0 kernels); its folded weights are computed once, at
-construction. It is the same function as the plain forward, which every
+For a SimpleBaseline-R50 at 256x192 (computing in bf16 on the card,
+float32 master weights or not; any dtype on the CPU, where the kernels'
+plain versions run) the forward is the composed kernel forward
+`fast_r50_stem_apply` (fused stem+pool, layer1 and block2_0 kernels, the
+input cast to the compute dtype, the model's tail under its autocast);
+its folded weights are computed once, at construction, in the compute
+dtype. It is the same function as the plain forward, which every
 other model, dtype and size takes. A ViTPose takes its own forward, in
 which each block's attention is the flash-attention kernel K8 on the
 card (bf16 q/k/v).
@@ -45,7 +47,8 @@ class TopDownEvaluator:
         (N-1)-interval grid, flip-test mirror without the 1-px shift).
         int8_engine: a CudaServingEngine built from this model, which
         replaces normalize + forward (SimpleBaseline-R50 only)."""
-        from tpupose_torch.ops.cuda_stem import fold_fast_r50, is_fast_r50
+        from tpupose_torch.ops.cuda_stem import (compute_dtype, fold_fast_r50,
+                                                 is_fast_r50)
 
         if family != "heatmap":
             raise ValueError(f"the port (and its int8_engine) serves the "
@@ -70,17 +73,18 @@ class TopDownEvaluator:
                              if int8_engine is None and is_fast_r50(self.model)
                              else None)
         self.dtype = next(self.model.parameters()).dtype
+        self.fast_dtype = compute_dtype(self.model)
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Normalized NHWC images -> heatmaps (B, Hh, Wh, K)."""
         from tpupose_torch.ops.cuda_stem import fast_r50_stem_apply
 
-        x = x.to(self.dtype)
         if (self.fast_weights is not None
                 and tuple(x.shape[1:3]) == FAST_R50_INPUT_HW):
-            return fast_r50_stem_apply(self.model, x, self.fast_weights)
-        return self.model(x)
+            return fast_r50_stem_apply(self.model, x.to(self.fast_dtype),
+                                       self.fast_weights)
+        return self.model(x.to(self.dtype))
 
     @torch.no_grad()
     def heatmaps(self, images: torch.Tensor) -> torch.Tensor:

@@ -32,9 +32,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpupose_torch"
-SOURCES = ("stem.cu", "bottleneck.cu", "dark_decode.cu", "int8_bottleneck.cu",
-           "int8_deconv.cu", "warp.cu", "flash_attention.cu",
-           "flash_attention_bwd.cu")
+SOURCES = ("stem.cu", "bottleneck.cu", "bridge.cu", "dark_decode.cu",
+           "int8_bottleneck.cu", "int8_deconv.cu", "warp.cu",
+           "flash_attention.cu", "flash_attention_bwd.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 

@@ -74,9 +74,8 @@ def layer1_reference(x: torch.Tensor, weights: list) -> torch.Tensor:
     return x
 
 
-_VARIANTS = {0: (64, 64, 256, 1), 1: (256, 64, 256, 1),
-             2: (256, 128, 512, 2)}
-_TILE_H = {0: 8, 1: 8, 2: 4}
+_VARIANTS = {0: (64, 64, 256, 1), 1: (256, 64, 256, 1)}
+_TILE_H = {0: 8, 1: 8}
 
 
 def launch_bottleneck(x: torch.Tensor, w: dict, variant: int) -> torch.Tensor:

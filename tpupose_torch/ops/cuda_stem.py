@@ -13,6 +13,9 @@ composed R50 serving forward (counterpart of tpupose/ops/pallas_stem.py).
     csrc/stem.cu, which replaces pallas_stem.py `_stem_kernel`. A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel or
     raises. `stem_pool.launches` counts launches;
+  - `is_fast_r50` / `fold_fast_r50`: which models the composed forward
+    covers (a SimpleBaseline-R50 computing in bf16, float32 masters or
+    not) and its folded weights, in the compute dtype;
   - `fast_r50_stem_apply`: stem + layer1 + block2_0 kernels, then the
     rest of the model, as pallas_stem.py `fast_r50_stem_apply` with
     `scales=None, bridge=True`.
@@ -108,36 +111,49 @@ def stem_pool(x: torch.Tensor, weights: dict) -> torch.Tensor:
 stem_pool.launches = 0
 
 
+def compute_dtype(model) -> torch.dtype:
+    """The dtype a model computes in: `model.compute_dtype` where it has
+    one (a SimpleBaseline with float32 master weights under bf16
+    autocast computes in bf16), else its parameters' dtype."""
+    return getattr(model, "compute_dtype", next(model.parameters()).dtype)
+
+
 def is_fast_r50(model) -> bool:
     """True where the fused serving forward covers the model: a
-    SimpleBaseline with a ResNet-50 backbone, in bf16 (the kernels' type)
-    or on the CPU (where the plain versions run in any dtype)."""
+    SimpleBaseline with a ResNet-50 backbone that computes in bf16 (the
+    kernels' type), whatever its parameters' dtype, or any model of that
+    kind on the CPU (where the plain versions run in any dtype)."""
     p = next(model.parameters())
     return (getattr(model, "backbone_name", None) == "resnet50"
-            and (p.dtype == torch.bfloat16 or p.device.type == "cpu"))
+            and (compute_dtype(model) == torch.bfloat16
+                 or p.device.type == "cpu"))
 
 
 @torch.no_grad()
 def fold_fast_r50(model) -> dict:
     """Fold every weight the fused forward's kernels take, once, in the
-    model's dtype."""
+    model's compute dtype (from float32 masters where it keeps them)."""
     from tpupose_torch.ops.cuda_bridge import fold_bridge_weights
     from tpupose_torch.ops.cuda_layer1 import fold_layer1_weights
 
-    bb = model.backbone
-    return {"stem": fold_stem_weights(bb), "layer1": fold_layer1_weights(bb),
-            "bridge": fold_bridge_weights(bb)}
+    bb, dt = model.backbone, compute_dtype(model)
+    return {"stem": fold_stem_weights(bb, dt),
+            "layer1": fold_layer1_weights(bb, dt),
+            "bridge": fold_bridge_weights(bb, dt)}
 
 
 @torch.no_grad()
 def fast_r50_stem_apply(model, x: torch.Tensor, weights: dict):
     """The composed serving forward of SimpleBaseline-R50: normalized NHWC
-    (B, H, W, 3) -> heatmaps (B, H/4, W/4, K).
+    (B, H, W, 3) in the folded weights' dtype -> heatmaps (B, H/4, W/4,
+    K).
 
     Fused stem+pool kernel (replaces conv1, bn1 and the max-pool), layer1
     kernel (layer1 blocks 0-2), block2_0 kernel (layer2 block 0), then
     the model's own modules for layer2 blocks 1-3, layer3, layer4 and the
-    head. `weights` from fold_fast_r50(model)."""
+    head, under the torch.autocast that the model's own forward uses when
+    its compute and parameter dtypes differ. `weights` from
+    fold_fast_r50(model)."""
     from tpupose_torch.ops.cuda_bridge import bridge
     from tpupose_torch.ops.cuda_layer1 import layer1
 
@@ -146,7 +162,10 @@ def fast_r50_stem_apply(model, x: torch.Tensor, weights: dict):
     y = layer1(y, weights["layer1"])
     y = bridge(y, weights["bridge"])
     y = y.permute(0, 3, 1, 2)                   # NCHW view, channels_last
-    for blk in list(bb.layer2)[1:]:
-        y = blk(y)
-    y = bb.layer4(bb.layer3(y))
-    return model.head(y).permute(0, 2, 3, 1)
+    dt = compute_dtype(model)
+    with torch.autocast(y.device.type, dtype=dt,
+                        enabled=dt != next(model.parameters()).dtype):
+        for blk in list(bb.layer2)[1:]:
+            y = blk(y)
+        y = model.head(bb.layer4(bb.layer3(y)))
+    return y.permute(0, 2, 3, 1)
