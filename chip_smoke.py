@@ -6,9 +6,10 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
   1. the card's name and power limit (nvidia-smi) and torch's device name;
   2. build every hand-written kernel from tpupose_torch/csrc with nvcc
      (into build/tpupose_torch/) and print the build seconds; count the
-     HGMMA (wgmma) instructions in the SASS of the bridge (K3) and
-     flash-attention (K8) libraries by cuobjdump, where the toolkit has
-     it, and fail if either has none;
+     wgmma instructions in the SASS of the bridge (K3), flash-attention
+     (K8), its backward (K8b) (HGMMA, bf16) and int8 bottleneck (K5)
+     (IGMMA, s8) libraries by cuobjdump, where the toolkit has it, and
+     fail if one has none;
   3. each kernel of the SimpleBaseline-R50 256x192 serving path at B=128
      on seeded inputs: held against its plain PyTorch version at a stated
      tolerance, timed with CUDA events (median of 20 after warm-up) beside
@@ -115,10 +116,11 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
   9. device times under torch.profiler, last: K8, its plain version and
      SDPA at both shapes (their `ms`, `plain_ms`, `library_ms`: a K8
      launch is shorter than its wrapper's Python, so CUDA events around
-     one call measure the host), the same for K8b (its three launches
+     one call measure the host), the same for K8b (its two launches
      together) against the plain backward and SDPA's backward, K3 and its
-     four cuDNN convolutions, K7 and F.grid_sample (both warps), and K4,
-     beside their event times;
+     four cuDNN convolutions, K7 and F.grid_sample (both warps), K4, and
+     K5 over the 16 blocks and per stage beside the same blocks as bf16
+     cuDNN convolutions, beside their event times;
   6. a JSON line of every kernel's numbers, then the last line
      {"ok": true, "device": {...}}.
 
@@ -238,24 +240,32 @@ def device_ms(fn, iters=20):
     return total / 1e3 / iters
 
 
+# the wgmma kernels and the SASS mnemonic of their products: HGMMA for
+# bf16 in, IGMMA for s8 in
+WGMMA_SOURCES = {"bridge.cu": "HGMMA", "flash_attention.cu": "HGMMA",
+                 "flash_attention_bwd.cu": "HGMMA",
+                 "int8_bottleneck.cu": "IGMMA"}
+
+
 def hgmma_check(build):
-    """Count the HGMMA (wgmma) instructions in the SASS of the libraries
-    built from csrc/bridge.cu and csrc/flash_attention.cu, by cuobjdump
-    where the toolkit has it beside nvcc; a library without any fails."""
+    """Count the wgmma instructions (HGMMA for bf16, IGMMA for int8) in
+    the SASS of the libraries built from the wgmma kernels' sources, by
+    cuobjdump where the toolkit has it beside nvcc; a library without any
+    fails."""
     tool = Path(build._nvcc()).with_name("cuobjdump")
     if not tool.exists():
-        log(f"{tool} not found: HGMMA in the SASS not checked")
+        log(f"{tool} not found: wgmma in the SASS not checked")
         return
     counts = {}
-    for src in ("bridge.cu", "flash_attention.cu"):
+    for src, op in WGMMA_SOURCES.items():
         sass = subprocess.run([str(tool), "-sass", str(build._target(src))],
                               capture_output=True, text=True, check=True,
                               timeout=120).stdout
-        counts[src] = sass.count("HGMMA")
-    log(f"HGMMA instructions in the SASS (cuobjdump -sass): "
+        counts[src] = {op: sass.count(op)}
+    log(f"wgmma instructions in the SASS (cuobjdump -sass): "
         f"{json.dumps(counts)}")
-    if not all(counts.values()):
-        raise AssertionError(f"a wgmma kernel has no HGMMA: {counts}")
+    if not all(c for v in counts.values() for c in v.values()):
+        raise AssertionError(f"a wgmma kernel has no wgmma: {counts}")
 
 
 def rel_err(got, want):
@@ -561,7 +571,7 @@ def attention_bwd_row(Bq, L, heads, seed, bf16_peak, hbm):
     scores over ln 2. Bound: q, k, v, o, do read once and dq, dk, dv
     written once; 5 products of 2 L^2 64 FLOPs per (batch, head) at the
     bf16 peak. Returns the row with CUDA-event times (host gaps included)
-    and the calls whose device times phase 9 enters as ms (K8b's three
+    and the calls whose device times phase 9 enters as ms (K8b's two
     launches), plain_ms and library_ms (SDPA's backward alone, on a
     retained graph)."""
     from tpupose_torch.ops.attention import attention_backward_reference
@@ -1120,11 +1130,15 @@ def main() -> int:
             f"_int_mm equal; " + json.dumps(
                 {k: v for k, v in row.items() if k.endswith("ms")
                  or k == "bound_by"}))
+        k5_device.append((row, call, bf16))
         return row
 
+    k5_device = []                  # (row, kernel call, cuDNN call): phase 9
+
     k5_parts = []
+    blocks8 = list(eng.blocks)      # kept for phase 9 after eng is freed
     for i, (lo, hi) in enumerate(STAGES):
-        x, blks = stage_in[i], eng.blocks[lo:hi]
+        x, blks = stage_in[i], blocks8[lo:hi]
         k5_parts.append(measure(
             f"run_chunk layer{i + 1} ({hi - lo} blocks)",
             lambda x=x, b=blks: chain(run_chunk, x, b),
@@ -1132,11 +1146,11 @@ def main() -> int:
             lambda x=x, b=blks: chain(int_mm_block, x, b),
             lambda i=i: cudnn_stages(i, i + 1), *stage_cost(x, blks)))
     k5 = measure("run_chunk all 16 blocks",
-                 lambda: chain(run_chunk, stage_in[0], eng.blocks),
-                 lambda: chain(chunk_reference, stage_in[0], eng.blocks),
-                 lambda: chain(int_mm_block, stage_in[0], eng.blocks),
+                 lambda: chain(run_chunk, stage_in[0], blocks8),
+                 lambda: chain(chunk_reference, stage_in[0], blocks8),
+                 lambda: chain(int_mm_block, stage_in[0], blocks8),
                  lambda: cudnn_stages(0, 4),
-                 *stage_cost(stage_in[0], eng.blocks))
+                 *stage_cost(stage_in[0], blocks8))
     k6_parts = []
     for i, d in enumerate(eng.deconvs):
         x = head_in[i]
@@ -1167,7 +1181,11 @@ def main() -> int:
                  "(run_deconv :177, pallas_call :198)",
         launches=None, **{k: v for k, v in k6.items() if k != "name"},
         parts=k6_parts)
-    del stage_in, head_in, stage_bf, head_bf
+    del head_in, head_bf
+    # K5's rows (per stage, then the 16 blocks as results["run_chunk"])
+    k5_device = [(results["run_chunk"] if row is k5 else row, call, bf16)
+                 for row, call, bf16 in k5_device
+                 if row["name"].startswith("run_chunk")]
 
     # -- phase 3c: the warp kernel (K7) at B=128 -----------------------------
     from tpupose_torch.ops.affine import batched_affine_warp, get_affine_matrix
@@ -1604,6 +1622,8 @@ def main() -> int:
     timed += [(k8b_row, key, fn) for key, fn in k8b_calls.items()]
     timed += [(k8b_row["dinov3_640_vit_b"], key, fn)
               for key, fn in k8b_dino_calls.items()]
+    for row, call, bf16 in k5_device:
+        timed += [(row, "device_ms", call), (row, "bf16_cudnn_device_ms", bf16)]
     for row, key, fn in timed:
         row[key] = device_ms(fn)
     log("device ms under torch.profiler: " + json.dumps({
@@ -1621,7 +1641,10 @@ def main() -> int:
                                    for k in dino_calls},
         "flash_attention_bwd": {k: k8b_row[k] for k in k8b_calls},
         "flash_attention_bwd_dinov3": {k: k8b_row["dinov3_640_vit_b"][k]
-                                       for k in k8b_dino_calls}}))
+                                       for k in k8b_dino_calls},
+        "run_chunk": {r["name"]: {k: r[k] for k in (
+            "device_ms", "bf16_cudnn_device_ms", "ms", "bf16_cudnn_ms",
+            "bound_ms")} for r, _, _ in k5_device}}))
 
     # -- phase 6 ---------------------------------------------------------------
     print(json.dumps({"kernels": list(results.values())}), flush=True)

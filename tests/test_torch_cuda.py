@@ -143,6 +143,44 @@ def test_int8_bottleneck_kernel(int8_engine, block):
     assert torch.equal(got, chunk_reference(x, blk))
 
 
+# (block index, input H x W) of every distinct R50 block shape: the
+# projection and identity blocks of each stage, stride 2 from layer2 on
+_R50_BLOCKS = [(0, (64, 48)), (1, (64, 48)), (3, (64, 48)), (4, (32, 24)),
+               (7, (32, 24)), (8, (16, 12)), (13, (16, 12)), (14, (8, 6))]
+
+
+_R50_IDS = ["l1_proj", "l1_id", "l2_proj_s2", "l2_id", "l3_proj_s2", "l3_id",
+            "l4_proj_s2", "l4_id"]
+
+
+@pytest.mark.parametrize(
+    "block,hw,B",
+    [(b, hw, 3) for b, hw in _R50_BLOCKS]
+    + [(b, hw, 128) for b, hw in _R50_BLOCKS if b in (0, 3, 13, 14)],
+    ids=[f"{n}_B3" for n in _R50_IDS]
+    + [f"{n}_B128" for n, (b, _) in zip(_R50_IDS, _R50_BLOCKS)
+       if b in (0, 3, 13, 14)])
+def test_int8_bottleneck_kernel_every_r50_block(int8_engine, block, hw, B):
+    """K5 (int8 wgmma, weights by TMA) at every distinct R50 block shape,
+    bit-equal to chunk_reference. B = 3 leaves a partly filled last block
+    where a block takes two whole images (layer4's identity blocks, whose
+    second 64-row M tile spans the boundary between them); B = 128, the
+    serving batch, at layer4 and at the first block of layer1 and layer2."""
+    from tpupose_torch.ops.cuda_stages import chunk_reference, run_chunk
+
+    blk = int8_engine.blocks[block]
+    g = torch.Generator().manual_seed(100 + block + B)
+    x = torch.randint(0, 60, (B, *hw, blk.cin), generator=g,
+                      dtype=torch.int8).cuda()
+    n0 = run_chunk.launches
+    got = run_chunk(x, blk)
+    assert run_chunk.launches == n0 + 1
+    torch.cuda.synchronize()
+    want = chunk_reference(x, blk)
+    assert got.shape == want.shape
+    assert torch.equal(got, want), int((got != want).sum())
+
+
 @pytest.mark.parametrize("deconv", [0, 2], ids=["deconv", "fused_final"])
 def test_int8_deconv_kernel(int8_engine, deconv):
     """K6, with and without the fused final conv: bit-equal."""
@@ -365,6 +403,26 @@ def test_flash_attention_backward_kernel(gpu, L):
     want_lse = torch.logsumexp(s, dim=-1) / 0.6931471805599453   # log2
     assert lse.shape == (B, heads, L)
     assert (lse - want_lse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("L", [197, 1605])
+def test_flash_attention_backward_is_deterministic(gpu, L):
+    """K8b has no float atomics and sums in a fixed order: two calls on the
+    same inputs give the same bits (activation checkpointing relies on
+    it)."""
+    from tpupose_torch.ops.cuda_attention import (_launch,
+                                                  flash_attention_backward)
+
+    B, heads = (2, 3) if L > 200 else (8, 6)
+    q, k, v = _qkv_views(B, L, heads, seed=60 + L, gpu=gpu)
+    g = torch.Generator().manual_seed(70 + L)
+    do = torch.randn((B, L, heads, 64), generator=g).to(gpu, torch.bfloat16)
+    o, lse = _launch(q, k, v, 0.125, True)
+    first = flash_attention_backward(q, k, v, o, lse, do, 0.125)
+    second = flash_attention_backward(q, k, v, o, lse, do, 0.125)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 def test_fused_attention_backward_on_the_card_goes_to_k8b(gpu):

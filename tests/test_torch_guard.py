@@ -158,3 +158,90 @@ def test_cuda_tensor_warp_never_takes_the_plain_version(monkeypatch):
         ("warp.cu", "tp_affine_warp", (1, 6, 16, 12, 3, 8, 6, 3))]
     assert cuda_warp.affine_warp.launches == n0 + 1
     assert cuda_warp.crops_from_frames.launches == c0 + 1
+
+
+def test_cuda_int8_chain_goes_to_k5_never_the_plain_version(monkeypatch):
+    """The int8 engine's forward on fake CUDA crops: K1, the 16 bottleneck
+    launches (K5) and the 3 deconvs (K6) reach their stubbed kernels and
+    never a plain version; each block's weight maps are encoded once,
+    before any launch; run_chunk.launches rises by 16 and each launch carries the
+    tile that pick_tile chose. Fake CUDA tensors stand in for real ones on
+    a machine without a card."""
+    import dataclasses
+    import warnings
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from tpupose_torch.models.simple_baseline import SimpleBaseline
+    from tpupose_torch.ops import _build, cuda_engine, cuda_stages
+    from tpupose_torch.ops.int8_engine import fold_simple_baseline
+
+    def plain(*a, **k):
+        raise AssertionError("a plain version was reached for CUDA")
+
+    model = SimpleBaseline("resnet50", 17, dtype=torch.float32, device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+    nodes = fold_simple_baseline(model)[0]
+    n_amax = sum(1 for nd in nodes if nd.quant and nd.kind in ("conv", "add"))
+    eng = cuda_engine.CudaServingEngine.from_amax(
+        model, np.linspace(2.0, 9.0, n_amax), device="cpu")
+
+    launched = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for mod, name in ((cuda_stages, "chunk_reference"),
+                      (cuda_engine, "chunk_reference"),
+                      (cuda_engine, "stem_pool_reference"),
+                      (cuda_engine, "deconv_reference")):
+        monkeypatch.setattr(mod, name, plain)
+    monkeypatch.setattr(_build, "bind", lambda src, name, argtypes: (
+        lambda *args: launched.append((name, args)) or 0))
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    # the centering before K1 is torch elementwise work, whose constants a
+    # fake CUDA tensor cannot take in; stand in for it
+    monkeypatch.setattr(cuda_engine, "center_raw", lambda x: torch.empty(
+        x.shape, dtype=torch.float32, device=x.device))
+    n0 = cuda_stages.run_chunk.launches
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # fake data_ptr()
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            def card_like(t):              # a fake CUDA tensor of t's kind
+                return torch.empty(t.shape, dtype=t.dtype, device="cuda")
+
+            def on_card(obj):
+                return dataclasses.replace(obj, **{
+                    f.name: card_like(getattr(obj, f.name))
+                    for f in dataclasses.fields(obj)
+                    if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+            def with_maps(blk):            # what Int8Block.to does on a card
+                return dataclasses.replace(
+                    blk, tmaps=cuda_stages._weight_maps(blk))
+
+            card = cuda_engine.CudaServingEngine(
+                {k: card_like(v) for k, v in eng.stem_w.items()},
+                eng.s_stem, [with_maps(on_card(b)) for b in eng.blocks],
+                [on_card(d) for d in eng.deconvs], eng.num_joints,
+                torch.device("cuda:0"))
+            n_maps = len(launched)
+            crops = torch.empty((3, 256, 192, 3), dtype=torch.uint8,
+                                device="cuda")
+            hm = card.forward(crops)
+    assert tuple(hm.shape) == (3, 64, 48, 17) and hm.device.type == "cuda"
+    names = [n for n, _ in launched]
+    assert names[:n_maps] == ["tp_int8_bottleneck_weight_maps"] * 16
+    assert all(b.tmaps is not None and b.tmaps.device.type == "cpu"
+               for b in card.blocks)
+    assert names[n_maps:] == (["tp_stem_pool"] + ["tp_int8_bottleneck"] * 16
+                              + ["tp_int8_deconv"] * 3)
+    assert cuda_stages.run_chunk.launches == n0 + 16
+    k5 = [a for n, a in launched if n == "tp_int8_bottleneck"]
+    assert [a[12:16] for a in k5[:4]] == [(3, 64, 48, 64), (3, 64, 48, 256),
+                                          (3, 64, 48, 256), (3, 64, 48, 256)]
+    for a, blk in zip(k5, card.blocks):
+        B, H, W, cin, cmid, cout, s, th, tw, ni = a[12:22]
+        assert (cin, cmid, cout, s) == (blk.cin, blk.cmid, blk.cout,
+                                        blk.stride)
+        ho, wo = (H - 1) // s + 1, (W - 1) // s + 1
+        assert (th, tw, ni) == cuda_stages.pick_tile(
+            B, ho, wo, s, cin, cmid, cout, blk.wp is not None)
+        assert (a[8] is None) == (blk.wp is None)        # mp: projection

@@ -199,13 +199,21 @@ def test_stage_packer_and_reference_match_jax(case):
 
 def test_tiles_fit_every_r50_stage():
     """The kernel's tile choice at the R50 serving shapes: divides the
-    output, fits the 227 KB of shared memory."""
-    for ho, wo, s, cmid in ((64, 48, 1, 64), (32, 24, 2, 128),
-                            (32, 24, 1, 128), (16, 12, 2, 256),
-                            (16, 12, 1, 256), (8, 6, 2, 512), (8, 6, 1, 512)):
-        th, tw = pick_tile(ho, wo, s, cmid)
-        assert ho % th == 0 and wo % tw == 0 and th * tw <= 128
-        assert _smem_bytes(th, tw, s, cmid) <= 232448
+    output, at most 128 GEMM rows a block, several images only where the
+    tile is the whole image, fits the 227 KB of shared memory."""
+    for batch in (1, 3, 128):
+        for ho, wo, s, cin, cmid, cout, proj in (
+                (64, 48, 1, 64, 64, 256, True), (64, 48, 1, 256, 64, 256, False),
+                (32, 24, 2, 256, 128, 512, True),
+                (32, 24, 1, 512, 128, 512, False),
+                (16, 12, 2, 512, 256, 1024, True),
+                (16, 12, 1, 1024, 256, 1024, False),
+                (8, 6, 2, 1024, 512, 2048, True),
+                (8, 6, 1, 2048, 512, 2048, False)):
+            th, tw, ni = pick_tile(batch, ho, wo, s, cin, cmid, cout, proj)
+            assert ho % th == 0 and wo % tw == 0 and ni * th * tw <= 128
+            assert ni == 1 or (th, tw) == (ho, wo)
+            assert _smem_bytes(ni, th, tw, s, cmid) <= 232448
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
-// Block-wide int8 GEMM building blocks for the int8 kernels of tpupose_torch
-// (int8_bottleneck.cu, int8_deconv.cu): s8 x s8 -> s32 tensor-core products
-// with mma.sync.m16n8k32, operands staged through shared memory.
+// Block-wide int8 GEMM building blocks of the int8 deconv kernel
+// (int8_deconv.cu, K6): s8 x s8 -> s32 tensor-core products with
+// mma.sync.m16n8k32, operands staged through shared memory. (The int8
+// bottleneck, K5, runs int8 wgmma from wgmma_tma.cuh instead.)
 //
 // A GEMM computes C[M][N] = A[M][K] @ W[N][K]^T, with W row-major [N][K]
 // (the torch conv layout (O, I), K contiguous) and A given row by row by a

@@ -1,9 +1,10 @@
 // Hopper building blocks shared by the kernels written for sm_90a
-// (bridge.cu, K3, and flash_attention.cu, K8): mbarriers, TMA tile loads
-// (with cluster multicast), shared-memory matrix descriptors for 128-byte
-// swizzled tiles, and warpgroup matrix products (wgmma m64n64k16 and
-// m64n16k16, bf16 in, float32 accumulators), plus the host-side encoding
-// of tensor maps.
+// (bridge.cu, K3; flash_attention.cu, K8; flash_attention_bwd.cu, K8b;
+// int8_bottleneck.cu, K5): mbarriers, TMA tile loads (with cluster
+// multicast), shared-memory matrix descriptors for 128-byte swizzled
+// tiles, and warpgroup matrix products (wgmma m64n64k16 and m64n16k16,
+// bf16 in, float32 accumulators; m64n64k32 and m64n128k32, s8 in, s32
+// accumulators), plus the host-side encoding of tensor maps.
 //
 // Layouts. Every operand tile in shared memory is what a TMA load with
 // CU_TENSOR_MAP_SWIZZLE_128B writes: rows of 128 bytes (64 bf16), each
@@ -117,6 +118,15 @@ __device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorM
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2, int c3) {
   asm volatile(
@@ -183,6 +193,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
 #pragma unroll
   for (int i = 0; i < N; ++i)
@@ -234,9 +249,11 @@ __device__ __forceinline__ void mma_ss_n16(float (&d)[8], uint64_t da, uint64_t 
       : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
 }
 
-// d (64 x 64) += A (64 x 16 in registers, see above) * B (16 x 64 at db)
+// d (64 x 64) = A (64 x 16 in registers, see above) * B (16 x 64 at db)
+// + (accumulate ? d : 0)
 template <int TRANS_B>
-__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                       int accumulate = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -245,11 +262,121 @@ __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4], u
       ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
       "}\n"
       : TP_WG_OUT32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TRANS_B));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TRANS_B));
 }
 
 #undef TP_WG_D32
 #undef TP_WG_OUT32
+
+// -- int8 wgmma (s8 x s8 -> s32) ------------------------------------------------
+//
+// m64nNk32: both operands K-major (8-bit wgmma has no transposed form), so
+// a 128-byte swizzled row holds 128 K elements and a k32 step advances the
+// descriptors' start by 32 bytes, as a k16 step of bf16 does; desc_k
+// describes int8 tiles unchanged. The s32 accumulators lie as the float32
+// ones above; an A operand from registers is, per warp, the A fragment of
+// mma.m16n8k32 over that warp's 16 rows: a0 (row l/4, k 4(l%4)..+3), a1
+// (row l/4 + 8, same k), a2 (row l/4, k 16 + 4(l%4)..), a3 (row l/4 + 8,
+// k 16 + ...), four s8 per register: what ldmatrix_x4 gives when lanes
+// 0-15 address rows 0-15 at byte 0 of the step and lanes 16-31 the same
+// rows at byte 16.
+
+__device__ __forceinline__ void mma_s8_ss_n64(int (&d)[32], uint64_t da, uint64_t db,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n"
+      "}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+__device__ __forceinline__ void mma_s8_rs_n64(int (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n"
+      "}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void mma_s8_ss_n128(int (&d)[64], uint64_t da, uint64_t db,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+__device__ __forceinline__ void mma_s8_rs_n128(int (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n"
+      "}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d (64 x N, N / 2 per thread) = A (64 x 32 K-major at da, or in
+// registers) * B (N x 32 K-major at db) + (accumulate ? d : 0), N 64 or 128
+template <int N>
+__device__ __forceinline__ void mma_s8_ss(int (&d)[N / 2], uint64_t da, uint64_t db,
+                                          int accumulate) {
+  if constexpr (N == 64)
+    mma_s8_ss_n64(d, da, db, accumulate);
+  else
+    mma_s8_ss_n128(d, da, db, accumulate);
+}
+template <int N>
+__device__ __forceinline__ void mma_s8_rs(int (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
+                                          int accumulate) {
+  if constexpr (N == 64)
+    mma_s8_rs_n64(d, a, db, accumulate);
+  else
+    mma_s8_rs_n128(d, a, db, accumulate);
+}
 
 // 2^x on the MUFU unit (flush-to-zero; 2^-inf = 0)
 __device__ __forceinline__ float ex2(float x) {
@@ -294,14 +421,27 @@ inline EncodeTiled encode_fn() {
   return fn;
 }
 
-// A bf16 tensor map of rank R (dims innermost first, strides in bytes of
-// dims 1..R-1) with 128-byte swizzle and zero fill outside the tensor.
-// Returns 0 or a CUDA error code.
+// A tensor map of rank R over elements of type `type` (dims innermost
+// first, strides in bytes of dims 1..R-1) with 128-byte swizzle and zero
+// fill outside the tensor. Returns 0 or a CUDA error code.
 template <int R>
-inline int encode_bf16(CUtensorMap* map, const void* base, const uint64_t (&dims)[R],
-                       const uint64_t (&strides)[R - 1], const uint32_t (&box)[R]) {
+inline int encode_tiled(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                        const uint64_t (&dims)[R], const uint64_t (&strides)[R - 1],
+                        const uint32_t (&box)[R]) {
   EncodeTiled fn = encode_fn();
   if (!fn) return (int)cudaErrorNotSupported;
+  // The encoder is a driver call and checks `base` against the calling
+  // thread's current context. A thread whose first CUDA work is this call
+  // (autograd's device thread running a backward, say) has none yet: make
+  // the primary context of base's device current, once per thread.
+  static thread_local bool bound = false;
+  if (!bound) {
+    cudaPointerAttributes a;
+    cudaError_t e = cudaPointerGetAttributes(&a, base);
+    if (e == cudaSuccess) e = cudaSetDevice(a.device);
+    if (e != cudaSuccess) return (int)e;
+    bound = true;
+  }
   cuuint64_t d[R], s[R > 1 ? R - 1 : 1];
   cuuint32_t b[R], e[R];
   for (int i = 0; i < R; ++i) {
@@ -310,10 +450,23 @@ inline int encode_bf16(CUtensorMap* map, const void* base, const uint64_t (&dims
     e[i] = 1;
   }
   for (int i = 0; i + 1 < R; ++i) s[i] = strides[i];
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, R, const_cast<void*>(base), d, s,
-                        b, e, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const CUresult r = fn(map, type, R, const_cast<void*>(base), d, s, b, e,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int R>
+inline int encode_bf16(CUtensorMap* map, const void* base, const uint64_t (&dims)[R],
+                       const uint64_t (&strides)[R - 1], const uint32_t (&box)[R]) {
+  return encode_tiled<R>(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, dims, strides, box);
+}
+
+// int8 data: TMA moves bytes, so the unsigned 8-bit type serves
+template <int R>
+inline int encode_s8(CUtensorMap* map, const void* base, const uint64_t (&dims)[R],
+                     const uint64_t (&strides)[R - 1], const uint32_t (&box)[R]) {
+  return encode_tiled<R>(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, dims, strides, box);
 }
 
 }  // namespace wg

@@ -14,8 +14,8 @@ is `flash_attention_backward` on those, i.e. K8b, and nothing else.
 Anything either kernel does not take raises ValueError; a CPU tensor
 raises too (ops/attention.fused_attention sends CPU tensors to the plain
 version and never calls this). `flash_attention.launches` and
-`flash_attention_backward.launches` count launches (K8b's three kernels,
-delta, dkv and dq, count as one).
+`flash_attention_backward.launches` count launches (K8b's two kernels,
+dq with the Delta preprocess, then dkv, count as one).
 """
 
 from __future__ import annotations

@@ -146,7 +146,9 @@ class CudaServingEngine:
                    int(weights["final"][0].shape[0]), dev)
 
     def _run(self, images, stem, chunk, deconv):
-        images = torch.as_tensor(images, device=self.device)
+        if not (isinstance(images, torch.Tensor)
+                and images.device == self.device):
+            images = torch.as_tensor(images, device=self.device)
         if images.dim() != 4 or tuple(images.shape[1:]) != (*INPUT_HW, 3):
             raise ValueError(f"CudaServingEngine expects (B, 256, 192, 3) "
                              f"crops, got {tuple(images.shape)}")
@@ -162,7 +164,7 @@ class CudaServingEngine:
             y = chunk(y, blk)
         for d in self.deconvs:
             y = deconv(y, d)
-        return y[..., :self.num_joints]
+        return y.narrow(-1, 0, self.num_joints)
 
     @torch.no_grad()
     def forward(self, images) -> torch.Tensor:

@@ -17,11 +17,13 @@ tpupose/ops/pallas_stages.py).
   - `run_chunk`: the wrapper of csrc/int8_bottleneck.cu, which replaces
     pallas_stages.py `_chunk_kernel`, one launch per bottleneck. A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel or
-    raises. `run_chunk.launches` counts launches.
+    raises. `run_chunk.launches` counts launches. `pick_tile` chooses the
+    kernel block's output tile (and images per block) at a launch.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, fields, replace
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -32,10 +34,12 @@ import torch.nn.functional as F
 from tpupose_torch.ops import _build
 from tpupose_torch.ops.quant import QMAX
 
-# shared memory of csrc/int8_bottleneck.cu: 2 A stages (128 rows) and 2 W
-# stages (256 rows) of 64 + 16 bytes (csrc/int8_mma.cuh)
-_STAGE_BYTES = 2 * 128 * 80 + 2 * 256 * 80
+# shared memory of csrc/int8_bottleneck.cu: an activation ring of 2 and a
+# weight ring of 3 stages of 16 KB, then h0 and h1 (rows of cmid + 16
+# bytes), the ring's 10 mbarriers and 1024 bytes of alignment slack
+_RING_BYTES = 5 * 128 * 128
 _SMEM_LIMIT = 232448
+_MAPS_BYTES = 512           # four CUtensorMaps of the weights
 
 
 def quantize_per_col(k: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -70,11 +74,18 @@ class Int8Block:
     mp: Optional[torch.Tensor] = None
     bp: Optional[torch.Tensor] = None
     r: float = 0.0
+    tmaps: Optional[torch.Tensor] = None
 
     def to(self, device) -> "Int8Block":
-        return replace(self, **{
+        """The block on `device`; on the card it also gets `tmaps`, the
+        tensor maps of its weights (a CPU uint8 tensor), encoded once."""
+        blk = replace(self, tmaps=None, **{
             f.name: getattr(self, f.name).to(device) for f in fields(self)
-            if isinstance(getattr(self, f.name), torch.Tensor)})
+            if f.name != "tmaps"
+            and isinstance(getattr(self, f.name), torch.Tensor)})
+        if blk.w1.device.type == "cuda":
+            blk.tmaps = _weight_maps(blk)
+        return blk
 
 
 def _mat(kernel) -> np.ndarray:
@@ -182,23 +193,74 @@ def chunk_reference(x: torch.Tensor, blk: Int8Block) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _smem_bytes(th: int, tw: int, s: int, cmid: int) -> int:
-    """csrc/int8_bottleneck.cu smem_bytes: h0 over the halo, h1 over the
-    tile, rows of cmid + 16 bytes, plus the GEMM stages."""
-    hp = ((th - 1) * s + 3) * ((tw - 1) * s + 3)
-    return (hp + th * tw) * (cmid + 16) + _STAGE_BYTES
+def _geometry(th: int, tw: int, s: int) -> Tuple[int, int, int, int]:
+    """csrc/int8_bottleneck.cu geometry: the halo's columns HC and rows HR,
+    and conv1's bands: BR whole halo rows (BR * HC <= 128 GEMM rows), NBAND
+    of them."""
+    hc, hr = (tw - 1) * s + 3, (th - 1) * s + 3
+    br = min(hr, 128 // hc)
+    return hc, hr, br, -(-hr // br) if br else 0
 
 
-def pick_tile(ho: int, wo: int, s: int, cmid: int) -> Tuple[int, int]:
-    """Output tile (TH, TW) of one kernel block: TW the largest divisor of
-    Wo up to 16, TH the largest divisor of Ho with TH*TW <= 128 pixels whose
-    shared memory fits the card's 227 KB."""
-    tw = max(d for d in range(1, min(wo, 16) + 1) if wo % d == 0)
-    for th in range(ho, 0, -1):
-        if ho % th == 0 and th * tw <= 128 \
-                and _smem_bytes(th, tw, s, cmid) <= _SMEM_LIMIT:
-            return th, tw
-    raise ValueError(f"int8 bottleneck: no tile fits {ho}x{wo}, cmid {cmid}")
+def _smem_bytes(ni: int, th: int, tw: int, s: int, cmid: int) -> int:
+    """csrc/int8_bottleneck.cu smem_bytes: the rings, h0 over the NI halos
+    and h1 over the NI * TH * TW output rows (rows of cmid + 16 bytes), the
+    barriers and the alignment slack."""
+    hc, hr, _, _ = _geometry(th, tw, s)
+    return (_RING_BYTES + (ni * hc * hr + ni * th * tw) * (cmid + 16)
+            + 8 * 2 * 5 + 1024)
+
+
+@functools.lru_cache(maxsize=None)
+def pick_tile(batch: int, ho: int, wo: int, s: int, cin: int, cmid: int,
+              cout: int, proj: bool) -> Tuple[int, int, int]:
+    """The kernel block's work at one launch: a TH x TW output tile of NI
+    images (NI > 1 only where the tile is the whole image), NI*TH*TW <= 128
+    GEMM rows, within the card's 227 KB of shared memory. Chooses the least
+    padded product work over the launch: each of conv1's bands and each
+    pass of conv2 and conv3 costs two full 64-row M tiles; ties go to more
+    rows a block. Cached: the run-time path asks at every launch."""
+    best = None
+    for th in (d for d in range(1, ho + 1) if ho % d == 0):
+        for tw in (d for d in range(1, wo + 1) if wo % d == 0):
+            whole = th == ho and tw == wo
+            for ni in range(1, (128 // (th * tw) if whole else 1) + 1):
+                m2 = ni * th * tw
+                hc, _, _, nband = _geometry(th, tw, s)
+                if m2 > 128 or hc > 128 \
+                        or _smem_bytes(ni, th, tw, s, cmid) > _SMEM_LIMIT:
+                    continue
+                per_block = 128 * (ni * nband * cin * cmid + 9 * cmid * cmid
+                                   + cmid * cout + (cin * cout if proj else 0))
+                blocks = -(-batch // ni) * (ho // th) * (wo // tw)
+                key = (blocks * per_block, -m2)
+                if best is None or key < best[0]:
+                    best = (key, (th, tw, ni))
+    if best is None:
+        raise ValueError(f"int8 bottleneck: no tile fits {ho}x{wo}, cmid "
+                         f"{cmid}")
+    return best[1]
+
+
+def _weight_maps(blk: Int8Block) -> torch.Tensor:
+    """The tensor maps of a card block's weights (512 host bytes)."""
+    if blk.cin % 64 or (blk.cmid != 64 and blk.cmid % 128) or blk.cout % 128:
+        raise ValueError(f"run_chunk: widths cin {blk.cin} (a multiple of "
+                         f"64), cmid {blk.cmid} (64 or a multiple of 128), "
+                         f"cout {blk.cout} (a multiple of 128) not taken")
+    for k in ("w1", "w2", "w3", "wp"):
+        t = getattr(blk, k)
+        if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"run_chunk: {k} must be contiguous and 16-byte "
+                             f"aligned")
+    maps = torch.zeros(_MAPS_BYTES, dtype=torch.uint8)
+    fn = _build.bind("int8_bottleneck.cu", "tp_int8_bottleneck_weight_maps",
+                     [_build.PTR] * 4 + [_build.INT] * 3 + [_build.PTR])
+    _build.check(fn(blk.w1.data_ptr(), blk.w2.data_ptr(), blk.w3.data_ptr(),
+                    blk.wp.data_ptr() if blk.wp is not None else None,
+                    blk.cin, blk.cmid, blk.cout, maps.data_ptr()),
+                 "int8 bottleneck weight maps")
+    return maps
 
 
 def run_chunk(x: torch.Tensor, blk: Int8Block) -> torch.Tensor:
@@ -225,23 +287,29 @@ def run_chunk(x: torch.Tensor, blk: Int8Block) -> torch.Tensor:
                 or not t.is_contiguous():
             raise ValueError(f"run_chunk: {k} must be {shp} {want} "
                              f"contiguous on {x.device}")
+    if blk.tmaps is None:
+        raise ValueError("run_chunk: the block must be moved to the card "
+                         "with Int8Block.to, which encodes its tensor maps")
     x = x.contiguous()
+    if x.data_ptr() % 16:
+        raise ValueError("run_chunk: x must be 16-byte aligned")
     B, H, W, _ = x.shape
     s = blk.stride
     ho, wo = (H - 1) // s + 1, (W - 1) // s + 1
-    th, tw = pick_tile(ho, wo, s, blk.cmid)
     out = torch.empty((B, ho, wo, blk.cout), dtype=torch.int8,
                       device=x.device)
+    if B == 0:
+        return out
+    th, tw, ni = pick_tile(B, ho, wo, s, blk.cin, blk.cmid, blk.cout, proj)
     fn = _build.bind("int8_bottleneck.cu", "tp_int8_bottleneck",
-                     [_build.PTR] * 13 + [_build.FLOAT, _build.PTR]
-                     + [_build.INT] * 9 + [_build.PTR])
+                     [_build.PTR] * 10 + [_build.FLOAT, _build.PTR]
+                     + [_build.INT] * 10 + [_build.PTR])
     ptr = (lambda t: t.data_ptr() if t is not None else None)
-    _build.check(fn(x.data_ptr(), ptr(blk.w1), ptr(blk.m1), ptr(blk.b1),
-                    ptr(blk.w2), ptr(blk.m2), ptr(blk.b2), ptr(blk.w3),
-                    ptr(blk.m3), ptr(blk.b3), ptr(blk.wp), ptr(blk.mp),
-                    ptr(blk.bp), float(blk.r), out.data_ptr(), B, H, W,
-                    blk.cin, blk.cmid, blk.cout, s, th, tw,
-                    _build.stream_of(x)), "run_chunk")
+    _build.check(fn(x.data_ptr(), blk.tmaps.data_ptr(), ptr(blk.m1),
+                    ptr(blk.b1), ptr(blk.m2), ptr(blk.b2), ptr(blk.m3),
+                    ptr(blk.b3), ptr(blk.mp), ptr(blk.bp), float(blk.r),
+                    out.data_ptr(), B, H, W, blk.cin, blk.cmid, blk.cout, s,
+                    th, tw, ni, _build.stream_of(x)), "run_chunk")
     run_chunk.launches += 1
     return out
 
