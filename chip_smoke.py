@@ -6,16 +6,17 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
   1. the card's name and power limit (nvidia-smi) and torch's device name;
   2. build every hand-written kernel from tpupose_torch/csrc with nvcc
      (into build/tpupose_torch/) and print the build seconds; count the
-     wgmma instructions in the SASS of the bridge (K3), flash-attention
-     (K8), its backward (K8b) (HGMMA, bf16) and int8 bottleneck (K5)
-     (IGMMA, s8) libraries by cuobjdump, where the toolkit has it, and
-     fail if one has none;
+     wgmma instructions in the SASS of the layer1 (K2), bridge (K3),
+     flash-attention (K8), its backward (K8b) (HGMMA, bf16), int8
+     bottleneck (K5) and int8 deconv (K6) (IGMMA, s8) libraries by
+     cuobjdump, where the toolkit has it, and fail if one has none;
   3. each kernel of the SimpleBaseline-R50 256x192 serving path at B=128
      on seeded inputs: held against its plain PyTorch version at a stated
      tolerance, timed with CUDA events (median of 20 after warm-up) beside
      its plain version and, where one exists, the PyTorch library call
      that computes the same function (timed here as a yardstick only; the
-     port never calls it), and its bound on the card;
+     port never calls it), and its bound on the card (K2's row also
+     carries the byte floor of any three-launch layer1);
   3b. the int8 kernels at B=128: CudaServingEngine built from the same
      seeded weights in float32, calibrated on 32 of the crops; K5 (16
      int8 bottlenecks) per stage and K6 (3 deconvs, the last with the
@@ -118,9 +119,11 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
      launch is shorter than its wrapper's Python, so CUDA events around
      one call measure the host), the same for K8b (its two launches
      together) against the plain backward and SDPA's backward, K3 and its
-     four cuDNN convolutions, K7 and F.grid_sample (both warps), K4, and
-     K5 over the 16 blocks and per stage beside the same blocks as bf16
-     cuDNN convolutions, beside their event times;
+     four cuDNN convolutions, K2 and its ten cuDNN convolutions, K7 and
+     F.grid_sample (both warps), K4, K5 over the 16 blocks and per stage
+     beside the same blocks as bf16 cuDNN convolutions, and K6 per deconv
+     and over the head beside bf16 cuDNN and the _int_mm chain, beside
+     their event times;
   6. a JSON line of every kernel's numbers, then the last line
      {"ok": true, "device": {...}}.
 
@@ -242,9 +245,10 @@ def device_ms(fn, iters=20):
 
 # the wgmma kernels and the SASS mnemonic of their products: HGMMA for
 # bf16 in, IGMMA for s8 in
-WGMMA_SOURCES = {"bridge.cu": "HGMMA", "flash_attention.cu": "HGMMA",
+WGMMA_SOURCES = {"bottleneck.cu": "HGMMA", "bridge.cu": "HGMMA",
+                 "flash_attention.cu": "HGMMA",
                  "flash_attention_bwd.cu": "HGMMA",
-                 "int8_bottleneck.cu": "IGMMA"}
+                 "int8_bottleneck.cu": "IGMMA", "int8_deconv.cu": "IGMMA"}
 
 
 def hgmma_check(build):
@@ -987,6 +991,11 @@ def main() -> int:
             + json.dumps({k: v for k, v in results[s["name"]].items()
                           if k.endswith("ms")}))
 
+    # K2 in three launches moves each 256-channel intermediate through
+    # device memory twice: the floor of any such design, beside its bound
+    results["layer1"]["three_launch_bound_ms"] = (
+        nbytes(x1, fw["layer1"]) + 5 * B * p2 * 256 * 2) / hbm * 1e3
+
     # K4: data-dependent work: argmax over every map, the 9-point blur
     # (2 x 121 x 9 FLOPs) and the solve only where the peak is interior
     gc, gs = dark_decode(hm)
@@ -1076,7 +1085,7 @@ def main() -> int:
         for i in range(i0, i1):
             x = torch.relu(F.conv_transpose2d(x, *head_w[i], stride=2,
                                               padding=1))
-            if i == len(eng.deconvs) - 1:
+            if i == len(deconvs8) - 1:
                 x = F.conv2d(x, *fin_w)
         return x
 
@@ -1130,13 +1139,15 @@ def main() -> int:
             f"_int_mm equal; " + json.dumps(
                 {k: v for k, v in row.items() if k.endswith("ms")
                  or k == "bound_by"}))
-        k5_device.append((row, call, bf16))
+        k5_device.append((row, call, bf16, lib))
         return row
 
-    k5_device = []                  # (row, kernel call, cuDNN call): phase 9
+    # (row, kernel call, cuDNN call, _int_mm call) of K5 and K6: phase 9
+    k5_device = []
 
     k5_parts = []
     blocks8 = list(eng.blocks)      # kept for phase 9 after eng is freed
+    deconvs8 = list(eng.deconvs)
     for i, (lo, hi) in enumerate(STAGES):
         x, blks = stage_in[i], blocks8[lo:hi]
         k5_parts.append(measure(
@@ -1152,7 +1163,7 @@ def main() -> int:
                  lambda: cudnn_stages(0, 4),
                  *stage_cost(stage_in[0], blocks8))
     k6_parts = []
-    for i, d in enumerate(eng.deconvs):
+    for i, d in enumerate(deconvs8):
         x = head_in[i]
         k6_parts.append(measure(
             f"run_deconv deconv{i}" + (" + final" if d.wf is not None
@@ -1161,12 +1172,13 @@ def main() -> int:
             lambda x=x, d=d: deconv_reference(x, d),
             lambda x=x, d=d: int_mm_deconv(x, d),
             lambda i=i: cudnn_head(i, i + 1), *head_cost(x, [d])))
+    x = head_in[0]
     k6 = measure("run_deconv all 3",
-                 lambda: chain(run_deconv, head_in[0], eng.deconvs),
-                 lambda: chain(deconv_reference, head_in[0], eng.deconvs),
-                 lambda: chain(int_mm_deconv, head_in[0], eng.deconvs),
-                 lambda: cudnn_head(0, len(eng.deconvs)),
-                 *head_cost(head_in[0], eng.deconvs))
+                 lambda x=x: chain(run_deconv, x, deconvs8),
+                 lambda x=x: chain(deconv_reference, x, deconvs8),
+                 lambda x=x: chain(int_mm_deconv, x, deconvs8),
+                 lambda: cudnn_head(0, len(deconvs8)),
+                 *head_cost(x, deconvs8))
     results["run_chunk"] = dict(
         name="run_chunk", route="cuda",
         source="tpupose_torch/csrc/int8_bottleneck.cu",
@@ -1181,10 +1193,13 @@ def main() -> int:
                  "(run_deconv :177, pallas_call :198)",
         launches=None, **{k: v for k, v in k6.items() if k != "name"},
         parts=k6_parts)
-    del head_in, head_bf
-    # K5's rows (per stage, then the 16 blocks as results["run_chunk"])
+    del head_in                     # head_bf stays: phase 9 times cuDNN on it
+    # K5's and K6's rows (per stage or deconv, then all as results[...])
+    k6_device = [(results["run_deconv"] if row is k6 else row, call, bf16,
+                  lib) for row, call, bf16, lib in k5_device
+                 if row["name"].startswith("run_deconv")]
     k5_device = [(results["run_chunk"] if row is k5 else row, call, bf16)
-                 for row, call, bf16 in k5_device
+                 for row, call, bf16, _ in k5_device
                  if row["name"].startswith("run_chunk")]
 
     # -- phase 3c: the warp kernel (K7) at B=128 -----------------------------
@@ -1594,8 +1609,9 @@ def main() -> int:
               lambda: affine_warp(imgs, wm, (H, W))),
              (results["affine_warp"]["crops_from_frames"], "device_ms",
               lambda: crops_from_frames(frames, cm, (H, W)))]
-    x2 = layer1_reference(stem_pool_reference(normalize_images(imgs),
-                                              fw["stem"]), fw["layer1"])
+    x1 = stem_pool_reference(normalize_images(imgs), fw["stem"])
+    x2 = layer1_reference(x1, fw["layer1"])
+    l1c = [as_conv_weights(w) for w in fw["layer1"]]
     brc = [as_conv_weights(fw["bridge"])]
     src_f = imgs.permute(0, 3, 1, 2).float().contiguous()
     grid = grid_for(wm, (H, W), (H, W))
@@ -1607,7 +1623,11 @@ def main() -> int:
         return F.grid_sample(src, grd, mode="bilinear", padding_mode="zeros",
                              align_corners=True)
 
-    timed += [(results["bridge"], "device_ms",
+    timed += [(results["layer1"], "device_ms",
+               lambda: layer1(x1, fw["layer1"])),
+              (results["layer1"], "library_device_ms",
+               lambda: library_blocks(x1, l1c, (1, 1, 1))),
+              (results["bridge"], "device_ms",
                lambda: bridge(x2, fw["bridge"])),
               (results["bridge"], "library_device_ms",
                lambda: library_blocks(x2, brc, (2,))),
@@ -1624,9 +1644,14 @@ def main() -> int:
               for key, fn in k8b_dino_calls.items()]
     for row, call, bf16 in k5_device:
         timed += [(row, "device_ms", call), (row, "bf16_cudnn_device_ms", bf16)]
+    for row, call, bf16, lib in k6_device:
+        timed += [(row, "device_ms", call), (row, "bf16_cudnn_device_ms", bf16),
+                  (row, "library_device_ms", lib)]
     for row, key, fn in timed:
         row[key] = device_ms(fn)
     log("device ms under torch.profiler: " + json.dumps({
+        "layer1": {k: results["layer1"][k]
+                   for k in ("device_ms", "library_device_ms")},
         "bridge": {k: results["bridge"][k]
                    for k in ("device_ms", "library_device_ms")},
         "affine_warp_grid_sample": results["affine_warp"]["library_device_ms"],
@@ -1644,7 +1669,11 @@ def main() -> int:
                                        for k in k8b_dino_calls},
         "run_chunk": {r["name"]: {k: r[k] for k in (
             "device_ms", "bf16_cudnn_device_ms", "ms", "bf16_cudnn_ms",
-            "bound_ms")} for r, _, _ in k5_device}}))
+            "bound_ms")} for r, _, _ in k5_device},
+        "run_deconv": {r["name"]: {k: r[k] for k in (
+            "device_ms", "bf16_cudnn_device_ms", "library_device_ms", "ms",
+            "bf16_cudnn_ms", "library_ms", "bound_ms")}
+            for r, _, _, _ in k6_device}}))
 
     # -- phase 6 ---------------------------------------------------------------
     print(json.dumps({"kernels": list(results.values())}), flush=True)

@@ -66,6 +66,54 @@ def test_layer1_and_bridge_kernels(card):
 
 
 @pytest.mark.parametrize("B", [1, 3, 128])
+@pytest.mark.parametrize("variant", [0, 1], ids=["downsample", "identity"])
+def test_layer1_kernel_every_variant(card, variant, B):
+    """K2 (csrc/bottleneck.cu: wgmma products fed by TMA, clusters of two
+    blocks) one launch per variant against bottleneck_reference at the
+    R50 shape 64x48: variant 0 is layer1 block 0 (64 -> 256, downsample),
+    variant 1 blocks 1-2 (256 -> 256, identity). B=1 is 12 clusters of
+    one image, B=128 the serving batch. Then the three launches against
+    layer1_reference."""
+    from tpupose_torch.ops.cuda_layer1 import (bottleneck_reference,
+                                               fold_layer1_weights,
+                                               launch_bottleneck, layer1,
+                                               layer1_reference)
+
+    w = fold_layer1_weights(card.backbone)
+    cin = 64 if variant == 0 else 256
+    g = torch.Generator().manual_seed(20 + 2 * B + variant)
+    x = torch.rand((B, 64, 48, cin), generator=g).cuda().to(torch.bfloat16)
+    blk = w[0] if variant == 0 else w[1]
+    got = launch_bottleneck(x, blk, variant)
+    torch.cuda.synchronize()
+    assert got.shape == (B, 64, 48, 256) and got.dtype == torch.bfloat16
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, bottleneck_reference(x, blk, 1)) < 2e-2
+    if variant == 0:
+        n0 = layer1.launches
+        got = layer1(x, w)
+        assert layer1.launches == n0 + 3
+        torch.cuda.synchronize()
+        assert _rel(got, layer1_reference(x, w)) < 2e-2
+
+
+def test_layer1_rejects_what_it_does_not_take(card):
+    from tpupose_torch.ops.cuda_layer1 import fold_layer1_weights, layer1
+
+    w = fold_layer1_weights(card.backbone)
+    x = torch.zeros((1, 48, 40, 64), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="even count"):
+        layer1(x, w)                        # 3 x 5 tiles of 16 x 8
+    with pytest.raises(ValueError, match="16x8"):
+        layer1(x.new_zeros((1, 56, 48, 64)), w)
+    with pytest.raises(ValueError, match="bfloat16"):
+        layer1(torch.zeros((1, 64, 48, 64), device="cuda"), w)
+    with pytest.raises(ValueError, match="weight w2"):
+        layer1(x.new_zeros((1, 64, 48, 64)),
+               [dict(w[0], w2=w[0]["w2"].float())] + w[1:])
+
+
+@pytest.mark.parametrize("B", [1, 3, 128])
 def test_bridge_kernel(card, B):
     """K3 (csrc/bridge.cu: wgmma products fed by TMA, clusters of two
     blocks) against bridge_reference at 64x48x256 inputs: B=1 is one
@@ -194,6 +242,48 @@ def test_int8_deconv_kernel(int8_engine, deconv):
     got = run_deconv(x, spec)
     torch.cuda.synchronize()
     assert torch.equal(got, deconv_reference(x, spec))
+
+
+@pytest.mark.parametrize("B", [1, 3, 128])
+@pytest.mark.parametrize("deconv", [0, 1, 2],
+                         ids=["deconv0", "deconv1", "deconv2_final"])
+def test_int8_deconv_kernel_every_shape(int8_engine, deconv, B):
+    """K6 (int8 wgmma on TMA-fed operands) at the three R50 head shapes,
+    bit-equal to deconv_reference. A work item is 192 GEMM rows: 4 images
+    of deconv0 (B = 1 and 3 leave the last item partly filled), one image
+    of deconv1, 8 of deconv2's 32 rows; deconv2 carries the final conv.
+    B = 1 has fewer items than the card has SMs, B = 128 more."""
+    from tpupose_torch.ops.cuda_head import deconv_reference, run_deconv
+
+    spec = int8_engine.deconvs[deconv]
+    hw = {0: (8, 6), 1: (16, 12), 2: (32, 24)}[deconv]
+    g = torch.Generator().manual_seed(30 + 3 * deconv + B)
+    x = torch.randint(0, 60, (B, *hw, spec.cin), generator=g,
+                      dtype=torch.int8).cuda()
+    n0 = run_deconv.launches
+    got = run_deconv(x, spec)
+    assert run_deconv.launches == n0 + 1
+    torch.cuda.synchronize()
+    want = deconv_reference(x, spec)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+def test_int8_deconv_rejects_what_it_does_not_take(int8_engine):
+    import dataclasses
+
+    from tpupose_torch.ops.cuda_head import run_deconv
+
+    spec = int8_engine.deconvs[1]
+    x = torch.zeros((1, 16, 12, 256), dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="int8"):
+        run_deconv(x.float(), spec)
+    with pytest.raises(ValueError, match="int8"):
+        run_deconv(x[..., :128].contiguous(), spec)
+    with pytest.raises(ValueError, match="width"):
+        run_deconv(x.new_zeros((1, 2, 200, 256)), spec)
+    with pytest.raises(ValueError, match="mv must be"):
+        run_deconv(x, dataclasses.replace(spec, mv=spec.mv.cpu()))
 
 
 @pytest.fixture(scope="module")

@@ -216,6 +216,92 @@ def test_tiles_fit_every_r50_stage():
             assert _smem_bytes(ni, th, tw, s, cmid) <= 232448
 
 
+@pytest.mark.parametrize("hw", [(8, 6), (16, 12), (32, 24)],
+                         ids=["deconv0", "deconv1", "deconv2"])
+def test_deconv_tile_fills_a_block_at_every_r50_head_shape(hw):
+    """K6's block rows (csrc/int8_deconv.cu, chosen by deconv_tile): at the
+    three R50 head shapes TH whole input rows of NI images fill all 192
+    GEMM rows (4 images of 8x6, one of 16x12, 8 rows of 24), TH divides h,
+    several images only where TH == h; the kernel's shared memory fits the
+    card's 227 KB with and without the final conv."""
+    from tpupose_torch.ops import cuda_head
+
+    h, w = hw
+    th, ni = cuda_head.deconv_tile(h, w)
+    assert h % th == 0 and (ni == 1 or th == h) and th * w * ni == 192
+    for fin in (False, True):
+        assert cuda_head._smem_bytes(256, fin) <= 232448
+
+
+def test_deconv_tile_at_other_sizes():
+    from tpupose_torch.ops.cuda_head import deconv_tile
+
+    for h in range(1, 41):
+        for w in range(1, 193):
+            th, ni = deconv_tile(h, w)
+            assert h % th == 0 and (ni == 1 or th == h)
+            assert 0 < th * w * ni <= 192
+    with pytest.raises(ValueError, match="width"):
+        deconv_tile(4, 193)
+
+
+def test_cuda_deconv_launch_carries_its_tile(monkeypatch):
+    """run_deconv on (fake) CUDA tensors: one launch of
+    csrc/int8_deconv.cu (a stubbed build that records it) carrying the
+    tile deconv_tile chose, never the plain version, with and without the
+    final conv; ValueError on widths the kernel does not take."""
+    import dataclasses
+    import warnings
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from tpupose_torch.ops import _build, cuda_head
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version was reached for CUDA")
+
+    rs = np.random.RandomState(7)
+    k = torch.from_numpy(rs.normal(0, 0.1, (128, 128, 4, 4)))
+    kf = torch.from_numpy(rs.normal(0, 0.2, (17, 128, 1, 1)))
+    specs = [build_deconv_spec(k, torch.zeros(128), 0.04, 0.03),
+             build_deconv_spec(k, torch.zeros(128), 0.04, 0.03,
+                               final=(kf, torch.zeros(17), 0.03)),
+             build_deconv_spec(k[:64], torch.zeros(128), 0.04, 0.03)]
+    launched = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(cuda_head, "deconv_reference", plain)
+    monkeypatch.setattr(_build, "bind", lambda src, name, argtypes: (
+        lambda *args: launched.append((name, args[8:17])) or 0))
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    n0 = cuda_head.run_deconv.launches
+    outs = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # fake data_ptr()
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            card = [dataclasses.replace(d, **{
+                f.name: torch.empty(getattr(d, f.name).shape,
+                                    dtype=getattr(d, f.name).dtype,
+                                    device="cuda")
+                for f in dataclasses.fields(d)
+                if isinstance(getattr(d, f.name), torch.Tensor)})
+                for d in specs]
+            for d, hw in ((card[0], (8, 6)), (card[1], (32, 24))):
+                x = torch.empty((3, *hw, 128), dtype=torch.int8,
+                                device="cuda")
+                outs.append(cuda_head.run_deconv(x, d))
+            with pytest.raises(ValueError, match="multiples of 128"):
+                cuda_head.run_deconv(torch.empty((3, 8, 6, 64),
+                                                 dtype=torch.int8,
+                                                 device="cuda"), card[2])
+    assert [tuple(o.shape) for o in outs] == [(3, 16, 12, 128),
+                                              (3, 64, 48, 17)]
+    assert outs[1].dtype == torch.float32
+    assert launched == [("tp_int8_deconv", (3, 8, 6, 128, 128, 0, 0, 8, 4)),
+                        ("tp_int8_deconv", (3, 32, 24, 128, 128, 17, 32, 8,
+                                            1))]
+    assert cuda_head.run_deconv.launches == n0 + 2
+
+
 # ---------------------------------------------------------------------------
 # deconv packer + plain deconv vs build_deconv_spec + deconv_oracle
 # ---------------------------------------------------------------------------

@@ -157,3 +157,68 @@ def test_cuda_tensor_bridge_launches_the_kernel_or_raises(monkeypatch):
     assert out.device.type == "cuda" and tuple(out.shape) == (2, 32, 24, 512)
     assert launched == [("bridge.cu", "tp_bridge", (2, 64, 48))]
     assert cuda_bridge.bridge.launches == n0 + 1
+
+
+def test_layer1_tiles_fit_the_r50_shape():
+    """K2's tile rule (csrc/bottleneck.cu, mirrored by check_tiles): the
+    R50 layer1 output 64x48 splits into 4 x 6 tiles of 16x8, an even count
+    (a cluster takes two); other shapes are refused; the kernel's shared
+    memory fits the card's 227 KB."""
+    from tpupose_torch.ops import cuda_layer1
+
+    cuda_layer1.check_tiles(64, 48)
+    cuda_layer1.check_tiles(32, 16)
+    for h, w in ((48, 40), (56, 48), (64, 44), (16, 8)):
+        with pytest.raises(ValueError, match="16x8"):
+            cuda_layer1.check_tiles(h, w)
+    assert cuda_layer1._smem_bytes() <= 232448
+
+
+def test_cuda_tensor_layer1_launches_the_kernel_or_raises(monkeypatch):
+    """K2's wrapper on (fake) CUDA tensors: three launches of
+    csrc/bottleneck.cu (variant 0, then 1 twice; here a stubbed build that
+    records them), never the plain version; ValueError on an odd count of
+    16x8 tiles per image and on a float32 input."""
+    import warnings
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from tpupose_torch.ops import _build, cuda_layer1
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version was reached for CUDA")
+
+    launched = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(cuda_layer1, "layer1_reference", plain)
+    monkeypatch.setattr(cuda_layer1, "bottleneck_reference", plain)
+    monkeypatch.setattr(_build, "bind", lambda src, name, argtypes: (
+        lambda *args: launched.append((src, name, args[9:13])) or 0))
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    n0 = cuda_layer1.layer1.launches
+
+    def block(cin, ds):
+        shp = {"w1": (cin, 64), "w2": (3, 3, 64, 64), "w3": (64, 256),
+               "b1": (64,), "b2": (64,), "b3": (256,)}
+        if ds:
+            shp["wds"] = (cin, 256)
+        return {k: torch.empty(s, device="cuda", dtype=torch.float32
+                               if k[0] == "b" else torch.bfloat16)
+                for k, s in shp.items()}
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # fake data_ptr()
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            w = [block(64, True), block(256, False), block(256, False)]
+            x = torch.empty((2, 64, 48, 64), dtype=torch.bfloat16,
+                            device="cuda")
+            out = cuda_layer1.layer1(x, w)
+            with pytest.raises(ValueError, match="even count"):
+                cuda_layer1.layer1(x.new_empty((2, 48, 40, 64)), w)
+            with pytest.raises(ValueError, match="bfloat16"):
+                cuda_layer1.layer1(torch.empty((2, 64, 48, 64),
+                                               device="cuda"), w)
+    assert out.device.type == "cuda" and tuple(out.shape) == (2, 64, 48, 256)
+    assert launched == [("bottleneck.cu", "tp_bottleneck", (v, 2, 64, 48))
+                        for v in (0, 1, 1)]
+    assert cuda_layer1.layer1.launches == n0 + 3

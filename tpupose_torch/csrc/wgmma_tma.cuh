@@ -1,9 +1,10 @@
 // Hopper building blocks shared by the kernels written for sm_90a
-// (bridge.cu, K3; flash_attention.cu, K8; flash_attention_bwd.cu, K8b;
-// int8_bottleneck.cu, K5): mbarriers, TMA tile loads (with cluster
-// multicast), shared-memory matrix descriptors for 128-byte swizzled
-// tiles, and warpgroup matrix products (wgmma m64n64k16 and m64n16k16,
-// bf16 in, float32 accumulators; m64n64k32 and m64n128k32, s8 in, s32
+// (bottleneck.cu, K2; bridge.cu, K3; flash_attention.cu, K8;
+// flash_attention_bwd.cu, K8b; int8_bottleneck.cu, K5; int8_deconv.cu,
+// K6): mbarriers, TMA tile loads (with cluster multicast) and stores,
+// shared-memory matrix descriptors for 128-byte swizzled tiles, and
+// warpgroup matrix products (wgmma m64n64k16 and m64n16k16, bf16 in,
+// float32 accumulators; m64n32k32, m64n64k32 and m64n128k32, s8 in, s32
 // accumulators), plus the host-side encoding of tensor maps.
 //
 // Layouts. Every operand tile in shared memory is what a TMA load with
@@ -149,6 +150,16 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void*
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
+__device__ __forceinline__ void tma_store_5d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5, %6}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
 // the issuing thread's bulk stores have read their shared memory
 __device__ __forceinline__ void tma_store_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
@@ -281,6 +292,21 @@ __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4], u
 // 0-15 address rows 0-15 at byte 0 of the step and lanes 16-31 the same
 // rows at byte 16.
 
+__device__ __forceinline__ void mma_s8_ss_n32(int (&d)[16], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
+        "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 __device__ __forceinline__ void mma_s8_ss_n64(int (&d)[32], uint64_t da, uint64_t db,
                                                  int accumulate) {
   asm volatile(
@@ -360,11 +386,14 @@ __device__ __forceinline__ void mma_s8_rs_n128(int (&d)[64], const uint32_t (&a)
 }
 
 // d (64 x N, N / 2 per thread) = A (64 x 32 K-major at da, or in
-// registers) * B (N x 32 K-major at db) + (accumulate ? d : 0), N 64 or 128
+// registers) * B (N x 32 K-major at db) + (accumulate ? d : 0), N 32, 64 or
+// 128 (32: SS only)
 template <int N>
 __device__ __forceinline__ void mma_s8_ss(int (&d)[N / 2], uint64_t da, uint64_t db,
                                           int accumulate) {
-  if constexpr (N == 64)
+  if constexpr (N == 32)
+    mma_s8_ss_n32(d, da, db, accumulate);
+  else if constexpr (N == 64)
     mma_s8_ss_n64(d, da, db, accumulate);
   else
     mma_s8_ss_n128(d, da, db, accumulate);

@@ -21,17 +21,19 @@ are the JAX package's.
     mf = s_in_final * swf;
   - `deconv_reference`: the plain version (mirrors `deconv_oracle`),
     exact int products then the float32 epilogue in the kernel's order;
-  - `run_deconv`: the wrapper of csrc/int8_deconv.cu, which replaces
-    pallas_head.py `_deconv_kernel`. A CPU tensor takes the plain version;
-    a CUDA tensor launches the kernel or raises. `run_deconv.launches`
-    counts launches.
+  - `run_deconv`: the wrapper of csrc/int8_deconv.cu (int8 wgmma on
+    TMA-fed operands), which replaces pallas_head.py `_deconv_kernel`. A
+    CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    or raises. `run_deconv.launches` counts launches. `deconv_tile`
+    chooses a kernel work item's input rows, `_smem_bytes` mirrors the
+    kernel's shared memory.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, fields, replace
 from itertools import product
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +45,30 @@ from tpupose_torch.ops.cuda_stages import (_f32, _i8, _int_product, _rq,
 
 # per output parity: (input shift, torch kernel tap) pairs along one axis
 _TAPS = (((-1, 3), (0, 1)), ((0, 2), (1, 0)))
+
+# csrc/int8_deconv.cu: 192 GEMM rows an item, a ring of 4 stages of 192 +
+# 128 rows of 128 K bytes, output tiles of 192 rows x 128 channels, the
+# final conv's 32 x O weights, 9 mbarriers, 1024 bytes of alignment slack
+_ROWS = 192
+
+
+def _smem_bytes(o: int, fin: bool) -> int:
+    """Shared memory of one int8 deconv block (csrc/int8_deconv.cu
+    smem_bytes): O output channels, with or without the final conv."""
+    tiles = o // 128 if fin else 1
+    return (4 * (_ROWS + 128) * 128 + tiles * _ROWS * 128
+            + (32 * o if fin else 0) + 8 * 9 + 1024)
+
+
+def deconv_tile(h: int, w: int) -> Tuple[int, int]:
+    """A kernel work item's GEMM rows: TH whole input rows of NI images (TH
+    divides h, NI > 1 only where TH == h), as many as fit 192 rows: NI
+    images where a whole image fits, else the largest TH."""
+    if w > _ROWS:
+        raise ValueError(f"run_deconv: input width {w} > {_ROWS} not taken")
+    if h * w <= _ROWS:
+        return h, _ROWS // (h * w)
+    return max(d for d in range(1, h + 1) if h % d == 0 and d * w <= _ROWS), 1
 
 
 @dataclass
@@ -135,7 +161,8 @@ def deconv_reference(x: torch.Tensor, spec: DeconvSpec) -> torch.Tensor:
 def run_deconv(x: torch.Tensor, spec: DeconvSpec) -> torch.Tensor:
     """(B, h, w, Cin) int8 -> (B, 2h, 2w, O) int8, or (B, 2h, 2w, kf)
     float32 with the fused final conv. CPU: plain version; CUDA: one
-    launch of the int8 deconv kernel."""
+    launch of the int8 deconv kernel (Cin and O multiples of 128; with the
+    final conv O at most 256 and kf at most 32)."""
     if x.device.type == "cpu":
         return deconv_reference(x, spec)
     if x.device.type != "cuda":
@@ -155,18 +182,31 @@ def run_deconv(x: torch.Tensor, spec: DeconvSpec) -> torch.Tensor:
                 or not t.is_contiguous():
             raise ValueError(f"run_deconv: {k} must be {shp} {want} "
                              f"contiguous on {x.device}")
+    if spec.cin % 128 or o % 128 or (fin and (
+            o > 256 or spec.wf.shape[0] != 32 or not 1 <= spec.kf <= 32)):
+        raise ValueError(f"run_deconv: cin {spec.cin} and cout {o} must be "
+                         f"multiples of 128; with the final conv cout <= 256 "
+                         f"and 1 <= kf <= 32 (KP 32)")
     x = x.contiguous()
     B, h, w, _ = x.shape
     out = torch.empty((B, 2 * h, 2 * w, spec.kf if fin else o),
                       dtype=torch.float32 if fin else torch.int8,
                       device=x.device)
+    if B == 0:
+        return out
+    if x.data_ptr() % 16 or spec.w.data_ptr() % 16 \
+            or (fin and spec.wf.data_ptr() % 16):
+        raise ValueError("run_deconv: x and the weights must be 16-byte "
+                         "aligned")
+    th, ni = deconv_tile(h, w)
     fn = _build.bind("int8_deconv.cu", "tp_int8_deconv",
-                     [_build.PTR] * 8 + [_build.INT] * 7 + [_build.PTR])
+                     [_build.PTR] * 8 + [_build.INT] * 9 + [_build.PTR])
     ptr = (lambda t: t.data_ptr() if t is not None else None)
     _build.check(fn(x.data_ptr(), ptr(spec.w), ptr(spec.mv), ptr(spec.bv),
                     ptr(spec.wf), ptr(spec.mf), ptr(spec.bf), out.data_ptr(),
                     B, h, w, spec.cin, o, spec.kf,
-                    spec.wf.shape[0] if fin else 0, _build.stream_of(x)),
+                    spec.wf.shape[0] if fin else 0, th, ni,
+                    _build.stream_of(x)),
                  "run_deconv")
     run_deconv.launches += 1
     return out

@@ -8,10 +8,13 @@
   - `bottleneck_reference` / `layer1_reference`: the plain PyTorch
     version (im2col matmuls in float32, intermediates rounded to the
     input dtype where the kernel rounds them);
-  - `layer1`: the wrapper of csrc/bottleneck.cu, which replaces
+  - `layer1`: the wrapper of csrc/bottleneck.cu (wgmma products fed by
+    TMA, clusters of two blocks sharing each weight tile), which replaces
     pallas_layer1.py `_layer1_kernel` with three launches of one fused
     bottleneck kernel. CPU tensors take the plain version; CUDA tensors
     launch the kernel or raise. `layer1.launches` counts launches.
+    `check_tiles` holds a shape to the kernel's 16 x 8 tiles and
+    `_smem_bytes` mirrors its shared memory.
 """
 
 from __future__ import annotations
@@ -75,7 +78,28 @@ def layer1_reference(x: torch.Tensor, weights: list) -> torch.Tensor:
 
 
 _VARIANTS = {0: (64, 64, 256, 1), 1: (256, 64, 256, 1)}
-_TILE_H = {0: 8, 1: 8}
+# csrc/bottleneck.cu: a block's output tile, and its shared memory: the
+# activation ring (4 slots of 23 KB), the weight ring (8 x 64 x 128 B), h1
+# as three copies of 18 x 8 rows of 128 B, whose place h2 and then the
+# staged 16 x 8 x 256 bf16 output take, 24 mbarriers and 1024 bytes of
+# alignment slack
+TILE_H, TILE_W = 16, 8
+
+
+def _smem_bytes() -> int:
+    h1 = 3 * (TILE_H + 2) * TILE_W * 128
+    out = TILE_H * TILE_W * 256 * 2
+    return 4 * 23 * 1024 + 8 * 64 * 128 + max(h1, out) + 8 * 2 * (4 + 8) + 1024
+
+
+def check_tiles(h: int, w: int) -> None:
+    """Raise unless an h x w output splits into the kernel's 16 x 8 tiles,
+    an even count of them per image (a cluster of two blocks takes a
+    pair)."""
+    if h % TILE_H or w % TILE_W or (h // TILE_H) * (w // TILE_W) % 2:
+        raise ValueError(f"bottleneck: output {h}x{w} must split into "
+                         f"{TILE_H}x{TILE_W} tiles, an even count of them "
+                         f"per image")
 
 
 def launch_bottleneck(x: torch.Tensor, w: dict, variant: int) -> torch.Tensor:
@@ -86,9 +110,7 @@ def launch_bottleneck(x: torch.Tensor, w: dict, variant: int) -> torch.Tensor:
                          f"{cin}) bfloat16, got {tuple(x.shape)} {x.dtype}")
     B, H, W, _ = x.shape
     ho, wo = (H - 1) // s + 1, (W - 1) // s + 1
-    if ho % _TILE_H[variant] or wo % 8:
-        raise ValueError(f"bottleneck variant {variant}: output {ho}x{wo} "
-                         f"must tile by {_TILE_H[variant]}x8")
+    check_tiles(ho, wo)
     shapes = {"w1": (cin, cm), "w2": (3, 3, cm, cm), "w3": (cm, cout),
               "b1": (cm,), "b2": (cm,), "b3": (cout,)}
     if variant != 1:
@@ -100,8 +122,16 @@ def launch_bottleneck(x: torch.Tensor, w: dict, variant: int) -> torch.Tensor:
                 or not t.is_contiguous():
             raise ValueError(f"bottleneck variant {variant}: weight {k} must "
                              f"be {shp} {want} contiguous on {x.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"bottleneck variant {variant}: weight {k} must "
+                             f"be 16-byte aligned")
     x = x.contiguous()
+    if x.data_ptr() % 16:
+        raise ValueError(f"bottleneck variant {variant}: x must be 16-byte "
+                         f"aligned")
     out = torch.empty((B, ho, wo, cout), dtype=x.dtype, device=x.device)
+    if B == 0:
+        return out
     wds = w.get("wds", w["w3"])          # unread by the identity variant
     fn = _build.bind("bottleneck.cu", "tp_bottleneck", [_build.PTR] * 9
                      + [_build.INT] * 4 + [_build.PTR])
@@ -115,7 +145,8 @@ def launch_bottleneck(x: torch.Tensor, w: dict, variant: int) -> torch.Tensor:
 
 def layer1(x: torch.Tensor, weights: list) -> torch.Tensor:
     """(B, H, W, 64) -> (B, H, W, 256). CPU: plain version; CUDA: three
-    launches of the fused bottleneck kernel."""
+    launches of the fused bottleneck kernel (bf16; H a multiple of 16 and W
+    of 8, an even count of 16 x 8 tiles per image)."""
     if x.device.type == "cpu":
         return layer1_reference(x, weights)
     if x.device.type != "cuda":
