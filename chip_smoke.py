@@ -6,8 +6,8 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
   1. the card's name and power limit (nvidia-smi) and torch's device name;
   2. build every hand-written kernel from tpupose_torch/csrc with nvcc
      (into build/tpupose_torch/) and print the build seconds; count the
-     wgmma instructions in the SASS of the layer1 (K2), bridge (K3),
-     flash-attention (K8), its backward (K8b) (HGMMA, bf16), int8
+     wgmma instructions in the SASS of the stem (K1), layer1 (K2), bridge
+     (K3), flash-attention (K8), its backward (K8b) (HGMMA, bf16), int8
      bottleneck (K5) and int8 deconv (K6) (IGMMA, s8) libraries by
      cuobjdump, where the toolkit has it, and fail if one has none;
   3. each kernel of the SimpleBaseline-R50 256x192 serving path at B=128
@@ -28,7 +28,9 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
      under seeded matrices (rotation +-60 deg, scale 0.65-1.35, so parts
      of the views fall outside the image) must EQUAL its plain version;
      then crops_from_frames, 32 frames of 480x640 with D=4 person crops
-     each -> 128 crops of 256x192, must equal its plain version; both
+     each -> 128 crops of 256x192, must equal its plain version; for
+     each, the count of output tiles whose source footprint did not fit
+     shared memory (gathered from device memory) is printed; both
      timed beside the plain version and F.grid_sample (align_corners,
      zero padding) on a float32 NCHW copy made outside the timed region;
   3d. (run after phase 7: with it, or a profiler session, ahead of
@@ -120,7 +122,8 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
      one call measure the host), the same for K8b (its two launches
      together) against the plain backward and SDPA's backward, K3 and its
      four cuDNN convolutions, K2 and its ten cuDNN convolutions, K7 and
-     F.grid_sample (both warps), K4, K5 over the 16 blocks and per stage
+     F.grid_sample (both warps), K1 and conv2d+relu+max_pool2d, K4, K5
+     over the 16 blocks and per stage
      beside the same blocks as bf16 cuDNN convolutions, and K6 per deconv
      and over the head beside bf16 cuDNN and the _int_mm chain, beside
      their event times;
@@ -213,28 +216,39 @@ def cuda_ms(fn, warmup=3, iters=20):
     return statistics.median(times)
 
 
-def device_ms(fn, iters=20):
+def device_ms(fn, iters=20, label="?"):
     """Device milliseconds per call of fn(): the union of the intervals of
     the kernels and copies that torch.profiler records over `iters` calls
     after warm-up, over `iters`. Unlike cuda_ms it leaves out the time
     the card waits for the host between launches, which dominates a
-    kernel shorter than its wrapper's Python."""
+    kernel shorter than its wrapper's Python. Every timed call launches at
+    least one kernel, so a session that recorded fewer device events than
+    calls lost some (on the card a session now and then records none, or a
+    few): it is logged with `label` and repeated, at most three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    iv = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                if e.device_type == DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False))
-    if not iv:
-        raise AssertionError("the profiler recorded no device activity")
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        iv = sorted((e.time_range.start, e.time_range.end)
+                    for e in prof.events()
+                    if e.device_type == DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False))
+        if len(iv) >= iters:
+            break
+        log(f"device_ms({label}): the profiler recorded {len(iv)} device "
+            f"events for {iters} calls (session {attempt + 1} of 3)")
+    if len(iv) < iters:
+        raise AssertionError(f"device_ms({label}): the profiler recorded "
+                             f"{len(iv)} device events for {iters} calls in "
+                             f"each of 3 sessions")
     total, end = 0.0, -1.0
     for a, b in iv:
         if b > end:
@@ -245,7 +259,8 @@ def device_ms(fn, iters=20):
 
 # the wgmma kernels and the SASS mnemonic of their products: HGMMA for
 # bf16 in, IGMMA for s8 in
-WGMMA_SOURCES = {"bottleneck.cu": "HGMMA", "bridge.cu": "HGMMA",
+WGMMA_SOURCES = {"stem.cu": "HGMMA", "bottleneck.cu": "HGMMA",
+                 "bridge.cu": "HGMMA",
                  "flash_attention.cu": "HGMMA",
                  "flash_attention_bwd.cu": "HGMMA",
                  "int8_bottleneck.cu": "IGMMA", "int8_deconv.cu": "IGMMA"}
@@ -488,10 +503,14 @@ def grid_for(mats, out_hw, src_hw):
 def warp_row(label, call, plain, lib, src, n_out, out_hw, f32_peak, hbm):
     """K7 against its plain version (every element equal, else at most
     1e-3 on the 0-255 scale with the count printed) and timed beside the
-    plain version and the grid_sample yardstick. Bound: the source read
-    once, the matrices, the float32 output written once; ~12 FLOPs of
-    coordinates per pixel and 6 of blend per channel."""
-    got, want, lib_out = call(), plain(), lib()
+    plain version and the grid_sample yardstick; `call(gather_count=...)`
+    also counts the output tiles whose source footprint did not fit
+    shared memory, so that the kernel gathered their taps from device
+    memory. Bound: the source read once, the matrices, the float32 output
+    written once; ~12 FLOPs of coordinates per pixel and 6 of blend per
+    channel."""
+    gathered = torch.zeros(1, dtype=torch.int32, device="cuda")
+    got, want, lib_out = call(gather_count=gathered), plain(), lib()
     torch.cuda.synchronize()
     diff = (got - want).abs()
     nbad, mae = int((diff > 0).sum()), diff.max().item()
@@ -508,9 +527,11 @@ def warp_row(label, call, plain, lib, src, n_out, out_hw, f32_peak, hbm):
     b_ms, b_by = bound_ms(n_out * Ho * Wo * (12 + 6 * C), nb, f32_peak, hbm)
     row = dict(max_abs_err=mae, differing=nbad, ms=cuda_ms(call),
                plain_ms=cuda_ms(plain), library_ms=cuda_ms(lib),
-               bound_ms=b_ms, bound_by=b_by)
+               bound_ms=b_ms, bound_by=b_by,
+               gathered_tiles=int(gathered.item()))
     log(f"kernel {label}: {nbad} of {got.numel()} elements differ from the "
-        f"plain version (max {mae}); grid_sample vs plain max abs "
+        f"plain version (max {mae}); {row['gathered_tiles']} tiles gathered "
+        f"their taps from device memory; grid_sample vs plain max abs "
         f"{lib_err:.3g}; " + json.dumps({k: v for k, v in row.items()
                                          if k.endswith("ms")
                                          or k == "bound_by"}))
@@ -1048,6 +1069,7 @@ def main() -> int:
     stem_flips = int((y_k != y).sum())
     log(f"int8 stem output: {stem_flips} of {y.numel()} elements differ "
         f"between K1 and its plain version after quantization")
+    results["stem_pool"]["int8_stem_flips"] = stem_flips
     stage_in = []                   # each stage's input from the plain chain
     for lo, hi in STAGES:
         stage_in.append(y)
@@ -1210,7 +1232,8 @@ def main() -> int:
     wm = warp_mats(B, H, W, seed=3)
     src_f = imgs.permute(0, 3, 1, 2).float().contiguous()
     grid = grid_for(wm, (H, W), (H, W))
-    k7 = warp_row("affine_warp", lambda: affine_warp(imgs, wm, (H, W)),
+    k7 = warp_row("affine_warp",
+                  lambda **kw: affine_warp(imgs, wm, (H, W), **kw),
                   lambda: batched_affine_warp(imgs, wm, (H, W)),
                   lambda: F.grid_sample(src_f, grid, mode="bilinear",
                                         padding_mode="zeros",
@@ -1230,7 +1253,7 @@ def main() -> int:
         .contiguous()
     cgrid = grid_for(cm, (H, W), (FH, FW))
     k7c = warp_row(f"crops_from_frames ({nf} frames {FH}x{FW}, D={D})",
-                   lambda: crops_from_frames(frames, cm, (H, W)),
+                   lambda **kw: crops_from_frames(frames, cm, (H, W), **kw),
                    lambda: _plain_crops(frames, cm, (H, W)),
                    lambda: F.grid_sample(rep_f, cgrid, mode="bilinear",
                                          padding_mode="zeros",
@@ -1623,7 +1646,10 @@ def main() -> int:
         return F.grid_sample(src, grd, mode="bilinear", padding_mode="zeros",
                              align_corners=True)
 
-    timed += [(results["layer1"], "device_ms",
+    timed += [(results["stem_pool"], "device_ms",
+               lambda: stem_pool(x0, fw["stem"])),
+              (results["stem_pool"], "library_device_ms", lib_stem),
+              (results["layer1"], "device_ms",
                lambda: layer1(x1, fw["layer1"])),
               (results["layer1"], "library_device_ms",
                lambda: library_blocks(x1, l1c, (1, 1, 1))),
@@ -1647,9 +1673,16 @@ def main() -> int:
     for row, call, bf16, lib in k6_device:
         timed += [(row, "device_ms", call), (row, "bf16_cudnn_device_ms", bf16),
                   (row, "library_device_ms", lib)]
+    sub_rows = {id(results["affine_warp"]["crops_from_frames"]):
+                "affine_warp.crops_from_frames",
+                id(k8_row["dinov3_640_vit_b"]): "flash_attention.dinov3",
+                id(k8b_row["dinov3_640_vit_b"]): "flash_attention_bwd.dinov3"}
     for row, key, fn in timed:
-        row[key] = device_ms(fn)
+        label = sub_rows.get(id(row)) or row["name"]
+        row[key] = device_ms(fn, label=f"{label}.{key}")
     log("device ms under torch.profiler: " + json.dumps({
+        "stem_pool": {k: results["stem_pool"][k]
+                      for k in ("device_ms", "library_device_ms")},
         "layer1": {k: results["layer1"][k]
                    for k in ("device_ms", "library_device_ms")},
         "bridge": {k: results["bridge"][k]

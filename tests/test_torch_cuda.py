@@ -50,6 +50,71 @@ def test_stem_kernel(card):
     assert _rel(stem_pool(x, w), stem_pool_reference(x, w)) < 2e-2
 
 
+@pytest.mark.parametrize("inp", ["normalized", "centered_raw"])
+@pytest.mark.parametrize("B,H,W", [(1, 256, 192), (3, 256, 192),
+                                   (128, 256, 192), (2, 256, 256),
+                                   (2, 384, 288), (1, 128, 640),
+                                   (3, 37, 53)],
+                         ids=["b1", "b3", "b128", "mpii_256x256", "384x288",
+                              "three_chunks_128x640", "odd_37x53"])
+def test_stem_kernel_every_shape(card, inp, B, H, W):
+    """K1 at the R50 serving shapes (one wgmma N of 104, one chunk), at
+    simple_baseline_mpii.yaml's 256x256 and at 384x288 (N = 152, one
+    chunk), at 128x640 (N = 152, three chunks of 75 pooled columns with
+    their one column of overlap and the bulk store at each chunk's first
+    pooled column) and at an odd size (ragged strip, columns past the conv
+    map masked), on the bf16 route's normalized input and on the int8
+    route's centered raw pixels (values up to +-150) with the normalize's
+    scale folded into the weights."""
+    from tpupose_torch.ops.cuda_stem import (center_raw, fold_stem_weights,
+                                             stem_pool, stem_pool_reference)
+    from tpupose_torch.ops.preprocess import IMAGENET_STD, normalize_images
+
+    g = torch.Generator().manual_seed(20 + B + H)
+    raw = torch.randint(0, 256, (B, H, W, 3), generator=g,
+                        dtype=torch.uint8).cuda()
+    if inp == "normalized":
+        x = normalize_images(raw).to(torch.bfloat16)
+        w = fold_stem_weights(card.backbone)
+    else:
+        x = center_raw(raw).to(torch.bfloat16)
+        w = fold_stem_weights(card.backbone, torch.bfloat16, input_scale=[
+            1.0 / (255.0 * sd) for sd in IMAGENET_STD])
+    n0 = stem_pool.launches
+    got = stem_pool(x, w)
+    assert stem_pool.launches == n0 + 1
+    want = stem_pool_reference(x, w)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.isfinite(got.float()).all()
+    assert _rel(got, want) < 2e-2
+
+
+def test_stem_rejects_what_it_does_not_take(card):
+    """K1 takes bf16 (B, H, W, 3) and weights from fold_stem_weights in
+    bf16 on x's device; anything else raises before a launch."""
+    from tpupose_torch.ops.cuda_stem import fold_stem_weights, stem_pool
+
+    w = fold_stem_weights(card.backbone)
+    x = torch.zeros((2, 64, 48, 3), dtype=torch.bfloat16, device="cuda")
+    n0 = stem_pool.launches
+    with pytest.raises(ValueError, match="bfloat16"):
+        stem_pool(x.float(), w)
+    with pytest.raises(ValueError, match="bfloat16"):
+        stem_pool(torch.zeros((2, 64, 48, 4), dtype=torch.bfloat16,
+                              device="cuda"), w)
+    with pytest.raises(ValueError, match="fold_stem_weights"):
+        stem_pool(x, {"w": w["w"].float(), "bias": w["bias"]})
+    with pytest.raises(ValueError, match="fold_stem_weights"):
+        stem_pool(x, {k: v.cpu() for k, v in w.items()})
+    assert stem_pool.launches == n0
+    # a view that starts off a 16-byte boundary is copied, not refused
+    flat = torch.zeros(2 * 64 * 48 * 3 + 1, dtype=torch.bfloat16,
+                       device="cuda")
+    xv = flat[1:].view(2, 64, 48, 3)
+    assert xv.data_ptr() % 16
+    assert stem_pool(xv, w).shape == (2, 16, 12, 64)
+
+
 def test_layer1_and_bridge_kernels(card):
     from tpupose_torch.ops.cuda_bridge import (bridge, bridge_reference,
                                                fold_bridge_weights)
@@ -338,6 +403,104 @@ def test_warp_kernel(gpu, dtype, out_size):
     got = affine_warp(src, m, out_size)
     assert affine_warp.launches == n0 + 1
     _assert_warp_equal(got, batched_affine_warp(src, m, out_size))
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+def test_warp_kernel_r50_train_batch(gpu, dtype):
+    """K7 at the R50 train step's shape, (128, 256, 192, 3), under
+    rotations up to +-60 degrees and scales 0.65-1.35: every element equal
+    to the plain version's."""
+    from tpupose_torch.ops.affine import batched_affine_warp
+    from tpupose_torch.ops.cuda_warp import affine_warp
+
+    g = torch.Generator().manual_seed(31)
+    src = torch.randint(0, 256, (128, 256, 192, 3), generator=g,
+                        dtype=torch.uint8)
+    if dtype == torch.float32:
+        src = src.float() + torch.rand(src.shape, generator=g)
+    src, m = src.to(gpu), _warp_mats(128, 256, 192, seed=32).to(gpu)
+    gathered = torch.zeros(1, dtype=torch.int32, device=gpu)
+    got = affine_warp(src, m, (256, 192), gather_count=gathered)
+    _assert_warp_equal(got, batched_affine_warp(src, m, (256, 192)))
+    if dtype == torch.uint8:       # every uint8 footprint fits shared memory
+        assert int(gathered.item()) == 0
+
+
+def test_warp_kernel_crops_480x640_d4(gpu):
+    """crops_from_frames at the serving shape: 32 frames of 480x640, D = 4
+    person crops each (box heights 150-450 px) -> 128 crops of 256x192,
+    every element equal."""
+    from tpupose_torch.ops.affine import get_affine_matrix
+    from tpupose_torch.ops.cuda_warp import _plain_crops, crops_from_frames
+
+    g = torch.Generator().manual_seed(33)
+    frames = torch.randint(0, 256, (32, 480, 640, 3), generator=g,
+                           dtype=torch.uint8).to(gpu)
+    hgt = 150 + 300 * torch.rand(128, generator=g)
+    centers = torch.stack([80 + 480 * torch.rand(128, generator=g),
+                           80 + 320 * torch.rand(128, generator=g)], -1)
+    m = get_affine_matrix(centers, torch.stack([hgt * 192 / 256, hgt], -1),
+                          0.0, (256, 192)).to(gpu)
+    got = crops_from_frames(frames, m, (256, 192))
+    _assert_warp_equal(got, _plain_crops(frames, m, (256, 192)))
+
+
+@pytest.mark.parametrize("out_size", [(23, 33), (17, 7), (5, 1)],
+                         ids=["wo33", "wo7", "wo1"])
+def test_warp_kernel_ragged_tiles(gpu, out_size):
+    """Output sizes that cut the kernel's 64 x 32 tiles and 32-pixel row
+    segments, with Wo * C not a multiple of 4 (rows start off a 16-byte
+    boundary, so the 16-byte stores give way to the tail's scalar ones):
+    every element equal."""
+    from tpupose_torch.ops.affine import batched_affine_warp
+    from tpupose_torch.ops.cuda_warp import affine_warp
+
+    g = torch.Generator().manual_seed(34)
+    src = torch.randint(0, 256, (4, 40, 36, 3), generator=g,
+                        dtype=torch.uint8).to(gpu)
+    m = _warp_mats(4, 40, 36, seed=35).to(gpu)
+    assert (out_size[1] * 3) % 4
+    _assert_warp_equal(affine_warp(src, m, out_size),
+                       batched_affine_warp(src, m, out_size))
+
+
+def test_warp_kernel_extreme_zoom_out(gpu):
+    """A zoom-out by 6-8x (a tile's footprint far larger than shared
+    memory, so its taps are gathered from device memory) and a view partly
+    outside the image: every element equal, and the gather counter counts
+    the tiles that took that path."""
+    from tpupose_torch.ops.affine import batched_affine_warp
+    from tpupose_torch.ops.cuda_warp import affine_warp
+
+    g = torch.Generator().manual_seed(36)
+    src = torch.randint(0, 256, (2, 600, 500, 3), generator=g,
+                        dtype=torch.uint8).to(gpu)
+    m = torch.tensor([[[8.0, 0.0, 3.0], [0.0, 8.0, 1.0]],
+                      [[6.0, 3.0, -50.0], [-3.0, 6.0, 200.0]]],
+                     device=gpu)
+    gathered = torch.zeros(1, dtype=torch.int32, device=gpu)
+    got = affine_warp(src, m, (70, 64), gather_count=gathered)
+    _assert_warp_equal(got, batched_affine_warp(src, m, (70, 64)))
+    assert int(gathered.item()) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("C", [1, 4, 5])
+def test_warp_kernel_channels(gpu, dtype, C):
+    """Other channel counts than RGB: one and four (16-byte stores of 8 C
+    floats a warp) and five (two passes of four and one channel, stored a
+    float at a time): every element equal."""
+    from tpupose_torch.ops.affine import batched_affine_warp
+    from tpupose_torch.ops.cuda_warp import affine_warp
+
+    g = torch.Generator().manual_seed(40 + C)
+    src = torch.randint(0, 256, (3, 72, 80, C), generator=g,
+                        dtype=torch.uint8)
+    if dtype == torch.float32:
+        src = src.float() + torch.rand(src.shape, generator=g)
+    src, m = src.to(gpu), _warp_mats(3, 72, 80, seed=41).to(gpu)
+    _assert_warp_equal(affine_warp(src, m, (70, 96)),
+                       batched_affine_warp(src, m, (70, 96)))
 
 
 def test_warp_kernel_view_fully_outside(gpu):

@@ -160,6 +160,40 @@ def test_cuda_tensor_warp_never_takes_the_plain_version(monkeypatch):
     assert cuda_warp.crops_from_frames.launches == c0 + 1
 
 
+def test_cuda_warp_gather_count_is_passed_or_refused(monkeypatch):
+    """K7's optional gather counter: one int32 on the images' device goes
+    to the kernel as its pointer (null when absent); any other tensor is
+    refused before a launch."""
+    import warnings
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from tpupose_torch.ops import _build, cuda_warp
+
+    launched = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(_build, "bind", lambda src, name, argtypes: (
+        lambda *args: launched.append(args[11]) or 0))
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    n0 = cuda_warp.affine_warp.launches
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # fake data_ptr()
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            x = torch.empty((2, 16, 12, 3), dtype=torch.uint8, device="cuda")
+            m = torch.empty((2, 2, 3), device="cuda")
+            cnt = torch.zeros(1, dtype=torch.int32, device="cuda")
+            cuda_warp.affine_warp(x, m, (9, 7))
+            cuda_warp.affine_warp(x, m, (9, 7), gather_count=cnt)
+            for bad in (torch.zeros(1, device="cuda"),
+                        torch.zeros(2, dtype=torch.int32, device="cuda"),
+                        torch.zeros(1, dtype=torch.int32)):
+                with pytest.raises(ValueError, match="gather_count"):
+                    cuda_warp.affine_warp(x, m, (9, 7), gather_count=bad)
+    assert len(launched) == 2 and launched[0] is None
+    assert launched[1] is not None
+    assert cuda_warp.affine_warp.launches == n0 + 2
+
+
 def test_cuda_int8_chain_goes_to_k5_never_the_plain_version(monkeypatch):
     """The int8 engine's forward on fake CUDA crops: K1, the 16 bottleneck
     launches (K5) and the 3 deconvs (K6) reach their stubbed kernels and

@@ -222,3 +222,70 @@ def test_cuda_tensor_layer1_launches_the_kernel_or_raises(monkeypatch):
     assert launched == [("bottleneck.cu", "tp_bottleneck", (v, 2, 64, 48))
                         for v in (0, 1, 1)]
     assert cuda_layer1.layer1.launches == n0 + 3
+
+
+def test_cuda_tensor_stem_launches_the_kernel_or_raises(monkeypatch):
+    """K1's wrapper on (fake) CUDA tensors: it goes to csrc/stem.cu (here
+    a stubbed build that records the launch) with the wgmma N that
+    stem_tile chose, never to the plain version, and raises ValueError on
+    a float32 input or weights that are not bf16."""
+    import warnings
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from tpupose_torch.ops import _build, cuda_stem
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version was reached for CUDA")
+
+    launched = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(cuda_stem, "stem_pool_reference", plain)
+    monkeypatch.setattr(_build, "bind", lambda src, name, argtypes: (
+        lambda *args: launched.append((src, name, args[4:8])) or 0))
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    n0 = cuda_stem.stem_pool.launches
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # fake data_ptr()
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            w = {"w": torch.empty((7, 7, 3, 64), dtype=torch.bfloat16,
+                                  device="cuda"),
+                 "bias": torch.empty(64, device="cuda")}
+            x = torch.empty((2, 256, 192, 3), dtype=torch.bfloat16,
+                            device="cuda")
+            out = cuda_stem.stem_pool(x, w)
+            wide = cuda_stem.stem_pool(torch.empty(
+                (1, 384, 288, 3), dtype=torch.bfloat16, device="cuda"), w)
+            with pytest.raises(ValueError, match="bfloat16"):
+                cuda_stem.stem_pool(torch.empty((2, 256, 192, 3),
+                                                device="cuda"), w)
+            with pytest.raises(ValueError, match="fold_stem_weights"):
+                cuda_stem.stem_pool(x, {"w": w["w"].float(),
+                                        "bias": w["bias"]})
+    assert out.device.type == "cuda" and tuple(out.shape) == (2, 64, 48, 64)
+    assert tuple(wide.shape) == (1, 96, 72, 64)
+    assert launched == [("stem.cu", "tp_stem_pool", (2, 256, 192, 104)),
+                        ("stem.cu", "tp_stem_pool", (1, 384, 288, 152))]
+    assert cuda_stem.stem_pool.launches == n0 + 2
+
+
+@pytest.mark.parametrize("hw,want", [
+    ((256, 192), (104, 1, 4)), ((384, 288), (152, 1, 6)),
+    ((37, 53), (104, 1, 1)), ((64, 64), (104, 1, 1)),
+    ((1024, 1024), (152, 4, 16)), ((3, 1), (104, 1, 1))])
+def test_stem_tile_and_shared_memory(hw, want):
+    """K1's chooser (mirrored from csrc/stem.cu): wgmma N 104 while one
+    chunk of 51 pooled columns covers the width, else 152 with chunks of
+    75; strips of 16 pooled rows; the chunks cover every pooled column and
+    the shared memory of either N fits the card's 227 KB."""
+    from tpupose_torch.ops import cuda_stem
+
+    nt, chunks, strips = cuda_stem.stem_tile(*hw)
+    assert (nt, chunks, strips) == want
+    hp, wp = (cuda_stem._pooled(n) for n in hw)
+    pc = (nt - 1) // 2
+    assert (chunks - 1) * pc < wp <= chunks * pc
+    assert (strips - 1) * 16 < hp <= strips * 16
+    # a chunk's conv columns 2 p0 - 1 .. 2 p0 + 2 pc - 1 fit the wgmma's N
+    assert 2 * pc + 1 <= nt
+    assert cuda_stem._smem_bytes(nt) <= 232448

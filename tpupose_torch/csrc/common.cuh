@@ -13,3 +13,29 @@ typedef __nv_bfloat162 bf162;
 extern "C" const char* tp_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+constexpr int TP_MAX_DEVICES = 64;
+
+// The blocks of `kernel` (`threads` threads, `smem` bytes of dynamic shared
+// memory) that the current device holds at once, after raising the kernel's
+// dynamic shared memory limit there to `smem`. cache: TP_MAX_DEVICES ints,
+// zero at first, one a device, so that both are done once a device.
+template <typename K>
+cudaError_t resident_blocks(K kernel, int threads, int smem, int* cache, int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < TP_MAX_DEVICES && cache[dev]) {
+    *blocks = cache[dev];
+    return cudaSuccess;
+  }
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *blocks = sms * per_sm;
+  if (dev < TP_MAX_DEVICES) cache[dev] = *blocks;
+  return cudaSuccess;
+}

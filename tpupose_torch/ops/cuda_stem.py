@@ -10,9 +10,12 @@ composed R50 serving forward (counterpart of tpupose/ops/pallas_stem.py).
     the conv output rounded to the input dtype before the pool, as the
     kernel rounds it;
   - `stem_pool`: the wrapper of the hand-written kernel in
-    csrc/stem.cu, which replaces pallas_stem.py `_stem_kernel`. A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel or
-    raises. `stem_pool.launches` counts launches;
+    csrc/stem.cu (wgmma products per conv row, the pool in registers, a
+    producer warp feeding a ring of input rows), which replaces
+    pallas_stem.py `_stem_kernel`. A CPU tensor takes the plain version;
+    a CUDA tensor launches the kernel or raises. `stem_pool.launches`
+    counts launches; `stem_tile` is the kernel's chooser of its wgmma N
+    and work units, `_smem_bytes` mirrors its shared memory;
   - `is_fast_r50` / `fold_fast_r50`: which models the composed forward
     covers (a SimpleBaseline-R50 computing in bf16, float32 masters or
     not) and its folded weights, in the compute dtype;
@@ -78,6 +81,38 @@ def stem_pool_reference(x: torch.Tensor, weights: dict) -> torch.Tensor:
     return y.to(x.dtype).permute(0, 2, 3, 1).contiguous()
 
 
+# csrc/stem.cu: the wgmma's N (conv columns a product covers), pooled rows
+# per strip, input rows in the ring and raw rows in flight
+STEM_NT = (104, 152)
+STRIP_ROWS, RING_ROWS, RAW_ROWS = 16, 12, 4
+
+
+def _pooled(n: int) -> int:
+    """The stem's output size along an input side of n: conv /2, pool /2."""
+    return (n - 1) // 4 + 1
+
+
+def stem_tile(h: int, w: int):
+    """The kernel's tiling of an (h, w) input: (nt, chunks, strips). nt is
+    the wgmma's N, 104 where one chunk of (nt - 1) // 2 = 51 pooled columns
+    covers the pooled width, else 152 (75 pooled columns a chunk, as many
+    chunks as the width needs); strips of 16 pooled rows."""
+    hp, wp = _pooled(h), _pooled(w)
+    nt = STEM_NT[0] if wp <= (STEM_NT[0] - 1) // 2 else STEM_NT[1]
+    pc = (nt - 1) // 2
+    return nt, -(-wp // pc), -(-hp // STRIP_ROWS)
+
+
+def _smem_bytes(nt: int) -> int:
+    """Dynamic shared memory of the kernel for wgmma N = nt: the ring of
+    input rows (2 nt + 6 pixels of 8 bytes), the raw rows, two staged
+    pooled rows, the mbarriers and 128 bytes of alignment slack."""
+    spx = 2 * nt + 6
+    raw = (spx * 6 + 30) // 16 * 16
+    return (RING_ROWS * spx * 8 + RAW_ROWS * raw
+            + 2 * ((nt - 1) // 2) * 128 + 2 * RING_ROWS * 8 + 128)
+
+
 def stem_pool(x: torch.Tensor, weights: dict) -> torch.Tensor:
     """(B, H, W, 3) -> (B, Hp, Wp, 64). CPU: plain version; CUDA: the
     csrc/stem.cu kernel (bf16 only)."""
@@ -95,15 +130,19 @@ def stem_pool(x: torch.Tensor, weights: dict) -> torch.Tensor:
         raise ValueError("stem_pool: weights must come from "
                          "fold_stem_weights(..., dtype=bfloat16) on x's device")
     x = x.contiguous()
+    if x.data_ptr() % 16:                # the kernel's 16-byte row copies
+        x = x.clone()
     B, H, W, _ = x.shape
-    hc, wc = (H - 1) // 2 + 1, (W - 1) // 2 + 1
-    out = torch.empty((B, (hc - 1) // 2 + 1, (wc - 1) // 2 + 1, 64),
-                      dtype=x.dtype, device=x.device)
+    out = torch.empty((B, _pooled(H), _pooled(W), 64), dtype=x.dtype,
+                      device=x.device)
+    if B == 0:
+        return out
+    nt, _, _ = stem_tile(H, W)
     fn = _build.bind("stem.cu", "tp_stem_pool", [_build.PTR] * 4
-                     + [_build.INT] * 3 + [_build.PTR])
+                     + [_build.INT] * 4 + [_build.PTR])
     _build.check(fn(x.data_ptr(), w.contiguous().data_ptr(),
                     bias.contiguous().data_ptr(), out.data_ptr(), B, H, W,
-                    _build.stream_of(x)), "stem_pool")
+                    nt, _build.stream_of(x)), "stem_pool")
     stem_pool.launches += 1
     return out
 
