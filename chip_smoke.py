@@ -116,6 +116,25 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
      on a device batch for the K8/K8b, plain and SDPA (timed only)
      routes and K8/K8b with remat; peak device memory of one B=128 step
      with remat off and on;
+  11. (after 10, in a child process) metric evaluation, 11a:
+     Trainer(cfg, device="cuda") with the simple_baseline config plus
+     eval.run_metrics=true restores the phase-7 checkpoint and runs
+     evaluate() (flip, DARK, PCK, MPJPE, COCO OKS-AP) on the builder's
+     synthetic valid set, then on 2048 synthetic crops held in host
+     memory: the launch counts of K1, K2, K3 and K4, set to 0 before,
+     must be exactly 2, 6, 2 and 1 per flip eval batch; every metric
+     finite, and on the 2048 crops PCK, mAP, mAP50 and mAP75 within 0.005
+     of the same evaluator with the kernel route off (the model's own
+     autocast forward); evaluate() img/s of both routes at
+     eval.batch_size, flip on; then `cli.train --test` on the same config
+     and checkpoint must launch K1-K4. 11b, the COCO-format path: a seeded set of 32 JPEGs of
+     480x640 (1-3 persons, 17 keypoints, crowd and unlabelled
+     annotations) under build/; the decode path that ran (native or PIL)
+     and the train and valid loaders' img/s; one training epoch with
+     data.name=coco data.device_affine=true (B=16), in which the warp
+     kernel's launches must equal the train steps; evaluate() through
+     CocoTopDownDataset with eval.dump_results, whose results JSON must
+     hold one entry per kept instance, K1-K4 launching, with its img/s;
   9. device times under torch.profiler, last: K8, its plain version and
      SDPA at both shapes (their `ms`, `plain_ms`, `library_ms`: a K8
      launch is shorter than its wrapper's Python, so CUDA events around
@@ -130,10 +149,11 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
   6. a JSON line of every kernel's numbers, then the last line
      {"ok": true, "device": {...}}.
 
-Phases run in the order 1-5, 7, 3d, 3e, 4c, 8, 10, 9, 6. Exits non-zero
-without printing a result where CUDA is unavailable. Needs one card;
-imports nothing of JAX. Writes only under build/ of the checkout (the
-kernels and the phase-7 and phase-10 checkpoints, removed at the end).
+Phases run in the order 1-5, 7, 3d, 3e, 4c, 8, 10, 11, 9, 6. Exits
+non-zero without printing a result where CUDA is unavailable. Needs one
+card; imports nothing of JAX. Writes only under build/ of the checkout
+(the kernels, the native host-IO library, the phase-7 and phase-10
+checkpoints and the phase-11 data, removed at the end).
 """
 
 from __future__ import annotations
@@ -216,6 +236,9 @@ def cuda_ms(fn, warmup=3, iters=20):
     return statistics.median(times)
 
 
+PROFILER_SESSIONS = 8
+
+
 def device_ms(fn, iters=20, label="?"):
     """Device milliseconds per call of fn(): the union of the intervals of
     the kernels and copies that torch.profiler records over `iters` calls
@@ -224,14 +247,17 @@ def device_ms(fn, iters=20, label="?"):
     kernel shorter than its wrapper's Python. Every timed call launches at
     least one kernel, so a session that recorded fewer device events than
     calls lost some (on the card a session now and then records none, or a
-    few): it is logged with `label` and repeated, at most three times."""
+    few, two or three sessions running): it is logged with `label` and
+    repeated after a pause, up to PROFILER_SESSIONS sessions in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    for attempt in range(3):
+    for attempt in range(PROFILER_SESSIONS):
+        if attempt:
+            time.sleep(1.0)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -244,11 +270,12 @@ def device_ms(fn, iters=20, label="?"):
         if len(iv) >= iters:
             break
         log(f"device_ms({label}): the profiler recorded {len(iv)} device "
-            f"events for {iters} calls (session {attempt + 1} of 3)")
+            f"events for {iters} calls (session {attempt + 1} of "
+            f"{PROFILER_SESSIONS})")
     if len(iv) < iters:
         raise AssertionError(f"device_ms({label}): the profiler recorded "
                              f"{len(iv)} device events for {iters} calls in "
-                             f"each of 3 sessions")
+                             f"each of {PROFILER_SESSIONS} sessions")
     total, end = 0.0, -1.0
     for a, b in iv:
         if b > end:
@@ -891,6 +918,264 @@ def vit_train_phase(results):
     torch.cuda.empty_cache()
 
 
+def write_coco_set(root: Path, n_images: int = 32, seed: int = 0) -> int:
+    """A seeded COCO-format keypoint set under `root`: n JPEGs of 480x640
+    with 1-3 persons each, 17 keypoints (a blob painted at each labelled
+    one), every 8th annotation a crowd and every 8th (offset 5) without a
+    labelled keypoint, which the dataset skips. The same files and
+    annotations serve train2017 and val2017. Returns the kept instances."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    H0, W0 = 480, 640
+    (root / "annotations").mkdir(parents=True, exist_ok=True)
+    for split in ("train2017", "val2017"):
+        (root / split).mkdir(exist_ok=True)
+    g = np.exp(-np.arange(-12, 13, dtype=np.float32) ** 2 / (2 * 6.0 ** 2))
+    blob = 200.0 * g[:, None] * g[None, :]
+    images, anns = [], []
+    for i in range(n_images):
+        img = rng.uniform(20, 60, (H0, W0, 3)).astype(np.float32)
+        for _ in range(1 + i % 3):
+            w, h = rng.uniform(100, 220), rng.uniform(200, 420)
+            x, y = rng.uniform(0, W0 - w), rng.uniform(0, H0 - h)
+            kp = np.stack([rng.uniform(x, x + w, K), rng.uniform(y, y + h, K),
+                           rng.choice([0, 1, 2], K, p=[0.15, 0.25, 0.6])], 1)
+            kp[kp[:, 2] == 0, :2] = 0
+            a = len(anns)
+            if a % 8 == 5:
+                kp[:] = 0
+            for k in np.flatnonzero(kp[:, 2] > 0):
+                cx, cy = int(kp[k, 0]), int(kp[k, 1])
+                y0, y1 = max(cy - 12, 0), min(cy + 13, H0)
+                x0, x1 = max(cx - 12, 0), min(cx + 13, W0)
+                img[y0:y1, x0:x1, k % 3] += blob[y0 - cy + 12:y1 - cy + 12,
+                                                 x0 - cx + 12:x1 - cx + 12]
+            anns.append({"id": a, "image_id": i, "category_id": 1,
+                         "bbox": [x, y, w, h],
+                         "keypoints": kp.reshape(-1).tolist(),
+                         "num_keypoints": int((kp[:, 2] > 0).sum()),
+                         "area": w * h * 0.6, "iscrowd": int(a % 8 == 3)})
+        name = f"{i:012d}.jpg"
+        pil = Image.fromarray(np.clip(img, 0, 255).astype(np.uint8))
+        for split in ("train2017", "val2017"):
+            pil.save(root / split / name, quality=90)
+        images.append({"id": i, "file_name": name, "width": W0, "height": H0})
+    for split in ("train2017", "val2017"):
+        with open(root / "annotations" / f"person_keypoints_{split}.json",
+                  "w") as f:
+            json.dump({"images": images, "annotations": anns}, f)
+    return sum(1 for a in anns if a["num_keypoints"] > 0 and not a["iscrowd"])
+
+
+def loader_ips(loader) -> float:
+    """img/s of one pass over a loader (host work only)."""
+    t0, n = time.perf_counter(), 0
+    for b in loader:
+        n += len(b["images"])
+    return n / (time.perf_counter() - t0)
+
+
+def _eval_trainer(over: dict):
+    """Trainer(device="cuda") on the simple_baseline config + `over`."""
+    from tpupose_torch.configs import default_config
+    from tpupose_torch.engine.trainer import Trainer
+
+    cfg = default_config()
+    cfg.merge_dict(SIMPLE_BASELINE)
+    cfg.merge_dotted(over)
+    cfg.freeze()
+    return Trainer(cfg, device="cuda")
+
+
+def _r50_wrappers() -> dict:
+    from tpupose_torch.ops.cuda_bridge import bridge
+    from tpupose_torch.ops.cuda_decode import dark_decode
+    from tpupose_torch.ops.cuda_layer1 import layer1
+    from tpupose_torch.ops.cuda_stem import stem_pool
+
+    return {"stem_pool": stem_pool, "layer1": layer1, "bridge": bridge,
+            "dark_decode": dark_decode}
+
+
+METRIC_KEYS = ("pck", "mAP", "mAP50", "mAP75")
+EVAL_DIR = ROOT / "build" / "chip_smoke_eval"
+
+
+def _fmt(m):
+    return " ".join(f"{k}={m[k]:.6f}" for k in ("mpjpe",) + METRIC_KEYS)
+
+
+EVAL_CROPS = 2048
+
+
+def eval_phase(results, ckpt_dir: Path):
+    """Phase 11a: metric evaluation of the phase-7 R50 through
+    Trainer.evaluate and cli.train --test on the R50 kernel route.
+
+    The route gate is read on EVAL_CROPS synthetic crops, not the
+    builder's 64: the phase-7 model sits at the predict-zero plateau
+    (the synthetic task paints joints k, k+3, ... in one colour, so 17
+    joints cannot be told apart), its heatmaps have no clear peak, and
+    the two bf16 routes' rounding moves ~12% of the argmaxes (both ways):
+    on 64 crops the net PCK difference then scatters with a spread of
+    ~0.004, on 2048 of ~0.0008."""
+    from tpupose_torch.cli.train import main as train_main
+    from tpupose_torch.data.synthetic import SyntheticTopDownDataset
+
+    wrappers = _r50_wrappers()
+    per_batch = {"stem_pool": 2, "layer1": 6, "bridge": 2, "dark_decode": 1}
+    keys = METRIC_KEYS
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    over = {"eval.run_metrics": "true", "model.checkpoint": str(ckpt_dir),
+            "train.output_dir": str(EVAL_DIR)}
+    tr = _eval_trainer(over)
+
+    def routes(label):
+        """evaluate() on the kernel route (launches counted) and with the
+        route off; returns (kernel metrics, plain metrics, launches)."""
+        tr._get_evaluator().fast_r50 = True
+        torch.cuda.synchronize()
+        for wfn in wrappers.values():
+            wfn.launches = 0
+        got = tr.evaluate()
+        torch.cuda.synchronize()
+        counts = {n: wfn.launches for n, wfn in wrappers.items()}
+        tr._evaluator.fast_r50 = False
+        want = tr.evaluate()
+        deltas = {k: abs(got[k] - want[k]) for k in keys}
+        log(f"{label}: kernel route {_fmt(got)}; plain route (the model's "
+            f"autocast forward) {_fmt(want)}; |kernel - plain| "
+            f"{json.dumps(deltas)}; launches {counts}")
+        n = len(tr.valid_loader)
+        if counts != {k: c * n for k, c in per_batch.items()}:
+            raise AssertionError(f"evaluate() launches {counts}, expected "
+                                 f"{per_batch} per flip eval batch x {n}")
+        if not all(np.isfinite(got[k]) for k in ("mpjpe",) + keys):
+            raise AssertionError("kernel-route metrics not finite")
+        return deltas, counts
+
+    routes(f"evaluate() of the phase-7 R50 (step {tr.state.step}) on the "
+           f"builder's {len(tr.valid_ds)} synthetic valid crops")
+    # EVAL_CROPS crops rendered once, held in host memory as the valid
+    # loader's batches (the synthetic set renders ~250 img/s on the host)
+    tr.valid_ds = SyntheticTopDownDataset(EVAL_CROPS, (H, W), (64, 48), K,
+                                          seed=1)
+    tr.valid_loader = tr.builder.dataloader(tr.valid_ds, "valid")
+    tr.valid_loader = list(tr._eval_batches())
+    deltas, counts = routes(f"evaluate() on {EVAL_CROPS} synthetic valid "
+                            f"crops")
+    if max(deltas.values()) > 0.005:
+        raise AssertionError("kernel-route metrics not within 0.005 of the "
+                             "plain route's")
+    for n, c in counts.items():
+        results[n]["launches_evaluate"] = c
+    ips = {}
+    for label, fast in (("kernel", True), ("plain", False)):
+        tr._get_evaluator().fast_r50 = fast
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.evaluate()
+            torch.cuda.synchronize()
+            runs.append(EVAL_CROPS / (time.perf_counter() - t0))
+        ips[label] = runs
+    log(f"evaluate() img/s (B={tr.cfg.eval.batch_size}, flip, DARK, PCK + "
+        f"MPJPE + OKS-AP, {EVAL_CROPS} crops from host memory, 3 runs): "
+        f"kernel route {[round(v, 1) for v in ips['kernel']]}, plain route "
+        f"{[round(v, 1) for v in ips['plain']]}")
+    results["stem_pool"]["evaluate_img_per_s"] = ips
+    del tr
+    torch.cuda.empty_cache()
+
+    cfg_path = EVAL_DIR / "simple_baseline.yaml"      # JSON is YAML
+    cfg_path.write_text(json.dumps(SIMPLE_BASELINE))
+    for wfn in wrappers.values():
+        wfn.launches = 0
+    rc = train_main(["--cfg", str(cfg_path), "--device", "cuda", "--test"]
+                    + [f"{k}={v}" for k, v in over.items()])
+    counts = {n: wfn.launches for n, wfn in wrappers.items()}
+    log(f"cli.train --test (simple_baseline config, phase-7 checkpoint): "
+        f"rc {rc}, launches {counts}")
+    if rc != 0 or min(counts.values()) <= 0:
+        raise AssertionError("cli.train --test did not evaluate through "
+                             "K1, K2, K3 and K4")
+    torch.cuda.empty_cache()
+
+
+def coco_phase(results):
+    """Phase 11b: the COCO-format data path, a training epoch on the
+    device warp (K7) and evaluate() with its results JSON."""
+    from tpupose_torch.data import native_io
+    from tpupose_torch.ops.cuda_warp import affine_warp
+
+    wrappers = _r50_wrappers()
+    keys = METRIC_KEYS
+    coco_root = ROOT / "build" / "chip_smoke_coco"
+    shutil.rmtree(coco_root, ignore_errors=True)
+    t0 = time.perf_counter()
+    n_kept = write_coco_set(coco_root)
+    lib = native_io.get_lib()
+    why = ("" if lib is not None else
+           f" (the native runtime did not build: g++ "
+           f"{'present' if shutil.which('g++') else 'absent'}, jpeglib.h "
+           f"{'present' if Path('/usr/include/jpeglib.h').exists() else 'absent'})")
+    log(f"COCO-format set: 32 JPEGs of 480x640, {n_kept} kept instances, "
+        f"written in {time.perf_counter() - t0:.1f} s; decode path: "
+        f"{'native' if lib is not None else 'PIL'}{why}")
+    res_path = coco_root / "results.json"
+    trc = _eval_trainer({"data.name": "coco", "data.root": str(coco_root),
+                         "data.device_affine": "true",
+                         "eval.run_metrics": "true",
+                         "eval.dump_results": str(res_path),
+                         "train.epochs": "1", "train.batch_size": "16",
+                         "train.output_dir": str(EVAL_DIR / "coco")})
+    if len(trc.valid_ds) != n_kept or len(trc.train_ds) != n_kept:
+        raise AssertionError(f"CocoTopDownDataset kept {len(trc.valid_ds)} "
+                             f"instances, expected {n_kept}")
+    ips_train = loader_ips(trc.train_loader)
+    ips_valid = loader_ips(trc.valid_loader)
+    torch.cuda.synchronize()
+    affine_warp.launches = 0
+    trc.train()
+    torch.cuda.synchronize()
+    n_steps, n_warp = trc.state.step, affine_warp.launches
+    log(f"COCO training epoch (device affine, B=16): {n_steps} steps, warp "
+        f"launches {n_warp}")
+    if n_steps != trc.steps_per_epoch or n_warp != n_steps:
+        raise AssertionError(f"warp launches {n_warp} != train steps "
+                             f"{n_steps} ({trc.steps_per_epoch} expected)")
+    results["affine_warp"]["launches_coco_train"] = n_warp
+    for wfn in wrappers.values():
+        wfn.launches = 0
+    t0 = time.perf_counter()
+    out = trc.evaluate()
+    torch.cuda.synchronize()
+    coco_ips = n_kept / (time.perf_counter() - t0)
+    counts = {n: wfn.launches for n, wfn in wrappers.items()}
+    entries = json.loads(res_path.read_text())
+    log(f"COCO evaluate(): {_fmt(out)}; launches {counts}; {len(entries)} "
+        f"results-JSON entries")
+    if len(entries) != n_kept or min(counts.values()) <= 0 or not all(
+            np.isfinite(out[k]) for k in ("mpjpe",) + keys) or not all(
+            len(e["keypoints"]) == 3 * K and 0 <= e["image_id"] < 32
+            for e in entries):
+        raise AssertionError("COCO evaluate(): wrong results JSON, launches "
+                             "or metrics")
+    log(f"COCO host data img/s ({'native' if lib is not None else 'PIL'} "
+        f"decode, {trc.cfg.data.num_workers} loader threads): train loader "
+        f"{ips_train:.1f}, valid loader {ips_valid:.1f}; evaluate() end to "
+        f"end {coco_ips:.1f}")
+    results["affine_warp"]["coco_loader_img_per_s"] = {
+        "decode": "native" if lib is not None else "PIL",
+        "train": ips_train, "valid": ips_valid, "evaluate": coco_ips}
+    del trc
+    shutil.rmtree(coco_root, ignore_errors=True)
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1426,8 +1711,7 @@ def main() -> int:
     log(f"validate(): {val:.6f}; resume restores step {n_steps} with equal "
         f"parameters and statistics")
     trainer_ips = tr.img_per_s
-    del tr, tr2
-    shutil.rmtree(out_dir, ignore_errors=True)
+    del tr, tr2                     # out_dir's checkpoint serves phase 11
     torch.cuda.empty_cache()
 
     # one float32 step (TF32 off) of the full R50 at B=4: card vs CPU
@@ -1619,6 +1903,18 @@ def main() -> int:
     # -- phase 10: the ViTPose-S training slice -------------------------------
     vit_train_phase(results)
 
+    # -- phase 11: metric evaluation and the COCO-format data path, in a
+    # child process: run in this one, it left torch.profiler dropping
+    # device events in every phase-9 session after it (2 runs of 2) ---------
+    phase11 = ROOT / "build" / "chip_smoke_phase11.json"
+    subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                    "--phase11", str(out_dir / "default" / "ckpt"),
+                    str(phase11)], check=True, timeout=900)
+    for kernel, row in json.loads(phase11.read_text()).items():
+        results[kernel].update(row)
+    phase11.unlink()
+    shutil.rmtree(out_dir, ignore_errors=True)
+
     # -- phase 9: device times, measured last so that no profiler session
     # precedes the timing of any other phase -----------------------------------
     k8_row = results["flash_attention"]
@@ -1716,5 +2012,23 @@ def main() -> int:
     return 0
 
 
+def phase11_main(ckpt_dir: Path, out_path: Path) -> int:
+    """Phase 11 on its own (the child process main() starts): its rows
+    of the kernels JSON go to `out_path`."""
+    from tpupose_torch.ops import _build
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    results = {n: {} for n in ("stem_pool", "layer1", "bridge", "dark_decode",
+                               "affine_warp")}
+    eval_phase(results, ckpt_dir)
+    coco_phase(results)
+    out_path.write_text(json.dumps(results))
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--phase11":
+        sys.exit(phase11_main(Path(sys.argv[2]), Path(sys.argv[3])))
     sys.exit(main())

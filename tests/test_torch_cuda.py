@@ -732,3 +732,83 @@ def test_vit_remat_on_the_card(gpu):
         grads[remat] = [xi.grad] + [p.grad for p in vit.parameters()]
     for a, b in zip(grads[False], grads[True]):
         assert torch.equal(a, b)
+
+
+def test_k2_k5_k6_launch_on_a_second_card_after_the_first(card,
+                                                          int8_engine):
+    """K2, K5 and K6 key their launch setup (the shared-memory limit, the
+    SM or cluster count) by device: after launches on cuda:0 they launch
+    on cuda:1 too, and agree with their plain versions there. Needs two
+    cards (skips on one)."""
+    import copy
+
+    from tpupose_torch.ops.cuda_engine import CudaServingEngine
+    from tpupose_torch.ops.cuda_head import deconv_reference, run_deconv
+    from tpupose_torch.ops.cuda_layer1 import (fold_layer1_weights, layer1,
+                                               layer1_reference)
+    from tpupose_torch.ops.cuda_stages import chunk_reference, run_chunk
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    imgs = np.random.RandomState(4).randint(0, 256, (2, 256, 192, 3)) \
+        .astype(np.uint8)
+    g = torch.Generator().manual_seed(31)
+    x = torch.rand((2, 64, 48, 64), generator=g).to(torch.bfloat16)
+    x5 = torch.randint(0, 60, (2, 64, 48, 64), generator=g, dtype=torch.int8)
+    x6 = torch.randint(0, 60, (2, 8, 6, int8_engine.deconvs[0].cin),
+                       generator=g, dtype=torch.int8)
+    outs = {}
+    for dev in ("cuda:0", "cuda:1"):
+        model = card if dev == "cuda:0" else copy.deepcopy(card).to(dev)
+        eng = (int8_engine if dev == "cuda:0"
+               else CudaServingEngine.build(model, imgs, device=dev))
+        w = fold_layer1_weights(model.backbone)
+        xd, x5d, x6d = x.to(dev), x5.to(dev), x6.to(dev)
+        outs[dev] = (layer1(xd, w), run_chunk(x5d, eng.blocks[0]),
+                     run_deconv(x6d, eng.deconvs[0]))
+        torch.cuda.synchronize(dev)
+        assert all(o.device == torch.device(dev) for o in outs[dev])
+        assert _rel(outs[dev][0], layer1_reference(xd, w)) < 2e-2
+        assert torch.equal(outs[dev][1], chunk_reference(x5d, eng.blocks[0]))
+        assert torch.equal(outs[dev][2],
+                           deconv_reference(x6d, eng.deconvs[0]))
+    for a, b in zip(outs["cuda:0"], outs["cuda:1"]):
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+def test_evaluate_kernel_route_matches_the_plain_route(card, tmp_path):
+    """Trainer.evaluate() of the simple_baseline config (R50 256x192, flip)
+    on the kernel route (K1-K4) against the same evaluator with the fast
+    route off (the model's own autocast forward): every PCK and OKS-AP
+    number within 0.005 (the 0.5-pt gate of
+    tests/test_int8_metric_parity.py), and per flip eval batch 2 K1, 6 K2,
+    2 K3 and 1 K4 launches. On 2048 synthetic crops: an untrained model's
+    heatmaps have no clear peak, the two bf16 routes' rounding moves ~12%
+    of the argmaxes both ways, and the net PCK difference scatters by
+    ~0.004 on 64 crops, ~0.0008 on 2048."""
+    from tpupose_torch.configs import load_config
+    from tpupose_torch.data.synthetic import SyntheticTopDownDataset
+    from tpupose_torch.engine.trainer import Trainer
+    from tpupose_torch.ops.cuda_bridge import bridge
+    from tpupose_torch.ops.cuda_decode import dark_decode
+    from tpupose_torch.ops.cuda_layer1 import layer1
+    from tpupose_torch.ops.cuda_stem import stem_pool
+
+    cfg = load_config("tpupose/configs/method/simple_baseline.yaml", {
+        "train.output_dir": str(tmp_path), "eval.run_metrics": "true"})
+    tr = Trainer(cfg, device="cuda")
+    tr.valid_ds = SyntheticTopDownDataset(2048, (256, 192), (64, 48), 17,
+                                          seed=1)
+    tr.valid_loader = tr.builder.dataloader(tr.valid_ds, "valid")
+    tr.valid_loader = list(tr._eval_batches())      # rendered once
+    wrappers = (stem_pool, layer1, bridge, dark_decode)
+    for w in wrappers:
+        w.launches = 0
+    got = tr.evaluate()
+    n = len(tr.valid_loader)
+    assert [w.launches for w in wrappers] == [2 * n, 6 * n, 2 * n, n]
+    tr._evaluator.fast_r50 = False
+    want = tr.evaluate()
+    assert tr._evaluator.fast_weights is None
+    for k in ("pck", "mAP", "mAP50", "mAP75"):
+        assert np.isfinite(got[k]) and abs(got[k] - want[k]) <= 0.005, k

@@ -8,8 +8,9 @@ parse args -> merge YAML -> Trainer.train().
         --cfg tpupose/configs/method/vitpose_s.yaml [train.remat=true]
 
 `--device` defaults to cuda (raises where CUDA is absent); `--device cpu`
-trains on the CPU. `--test` runs the loss-only `validate()` (the metric
-`evaluate()` is not ported yet).
+trains on the CPU. `--test` runs the loss-only `validate()`, then the
+metric `evaluate()` (PCK, MPJPE and COCO OKS-AP by default, eval.metrics),
+and prints both.
 """
 
 from __future__ import annotations
@@ -25,7 +26,10 @@ def main(argv=None):
     try:
         trainer = Trainer(cfg, device=args.device)
         if args.test:
-            printS(f"validation loss: {trainer.validate():.5f}")
+            loss = trainer.validate()
+            metrics = trainer.evaluate()
+            printS(f"validation loss: {loss:.5f} | "
+                   + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
             return 0
         trainer.train()
         return 0

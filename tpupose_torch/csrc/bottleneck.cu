@@ -434,18 +434,10 @@ int launch(const void* x, const void* w1, const void* b1, const void* w2, const 
   if (err) return err;
   auto kernel = bottleneck_kernel<CIN, DS>;
   // one cluster per pair of SMs, as many as can be resident at once
-  static int clusters = 0;
-  if (!clusters) {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (e != cudaSuccess) return (int)e;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(2 * 1024);
-    cfg.blockDim = dim3(THREADS);
-    cfg.dynamicSmemBytes = SMEM;
-    e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-    if (e != cudaSuccess) return (int)e;
-    if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
-  }
+  static int cache[TP_MAX_DEVICES];
+  int clusters = 0;
+  const cudaError_t e = resident_clusters(kernel, THREADS, SMEM, cache, &clusters);
+  if (e != cudaSuccess) return (int)e;
   const int pairs = B * (H / TH) * (W / TW) / 2;
   const dim3 grid(2 * (pairs < clusters ? pairs : clusters));
   kernel<<<grid, THREADS, SMEM, stream>>>(tx, tc, tout, tw, static_cast<const float*>(b1),

@@ -485,14 +485,9 @@ extern "C" int tp_int8_bottleneck(const void* x, const void* maps, const void* m
   if (err) return err;
 
   auto kernel = nb1_of(Cmid) == 64 ? int8_bottleneck_kernel<64> : int8_bottleneck_kernel<128>;
-  static bool attr_set[2] = {false, false};
-  bool& set = attr_set[nb1_of(Cmid) == 64 ? 0 : 1];
-  if (!set) {
-    cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
-    if (e != cudaSuccess) return (int)e;
-    set = true;
-  }
+  static bool smem_set[2][TP_MAX_DEVICES];
+  const cudaError_t e = smem_limit_once(kernel, SMEM_LIMIT, smem_set[nb1_of(Cmid) == 64 ? 0 : 1]);
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid((P.Ho / TH) * (P.Wo / TW), (B + NI - 1) / NI);
   kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(tx, tpx, tw, P);
   return (int)cudaGetLastError();

@@ -333,15 +333,10 @@ extern "C" int tp_int8_deconv(const void* x, const void* w, const void* mv, cons
   }
   if (err) return err;
   // one block per SM (the shared memory allows no second)
-  static int sms = 0;
-  if (!sms) {
-    cudaError_t e = cudaFuncSetAttribute(int8_deconv_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
-    int dev = 0;
-    if (e == cudaSuccess) e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-  }
+  static int cache[TP_MAX_DEVICES];
+  int sms = 0;
+  const cudaError_t e = resident_blocks(int8_deconv_kernel, THREADS, SMEM_LIMIT, cache, &sms);
+  if (e != cudaSuccess) return (int)e;
   const long items = 4L * (P.fin ? 1 : O / BN) * (h / TH) * ((B + NI - 1) / NI);
   const dim3 grid((unsigned)(items < sms ? items : sms));
   int8_deconv_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(tx, tw, twf,

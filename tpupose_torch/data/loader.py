@@ -2,7 +2,8 @@
 tpupose/data/loader.py).
 
 `BatchLoader` is copied as it is (numpy collation of static-shape
-samples, optional worker threads). `prefetch_to_device` keeps `depth`
+samples, optional worker threads, a dataset's batched `get_batch` where
+it has one, e.g. COCO's fused native decode + crop). `prefetch_to_device` keeps `depth`
 batches in flight: each numpy field is copied into pinned host memory
 and sent to the device with a `non_blocking` copy, so host collation and
 the host-to-device transfer overlap the train step on the card.
@@ -57,7 +58,11 @@ class BatchLoader:
         if self.pad_last and len(sel) < self.batch_size:
             pad = self.batch_size - len(sel)
             sel = np.concatenate([sel, np.repeat(sel[-1:], pad)])
-        samples = [self.dataset[int(i)] for i in sel]
+        if hasattr(self.dataset, "get_batch"):
+            # batched fast path (e.g. the native fused decode+crop)
+            samples = self.dataset.get_batch(sel)
+        else:
+            samples = [self.dataset[int(i)] for i in sel]
         batch = self._collate(samples)
         if self.pad_last:
             mask = np.ones(len(sel), bool)

@@ -3,8 +3,8 @@ tpupose/engine/builder.py).
 
 Ported: `model()` (simple_baseline, vitpose), `loss()` (joints_mse,
 joints_mse_weighted), `lr_scheduler()`, `optimizer()` (head/base lr
-split, frozen backbone, global-norm clipping), `dataset()` (synthetic)
-and `dataloader()`. Any other name raises ValueError naming the ROADMAP
+split, frozen backbone, global-norm clipping), `dataset()` (synthetic,
+coco) and `dataloader()`. Any other name raises ValueError naming the ROADMAP
 item that ports it. The JAX package's `set_device` (a device mesh) has
 no counterpart yet: the port trains on one device.
 """
@@ -128,10 +128,12 @@ class Builder:
     # -- data ------------------------------------------------------------------
     def dataset(self, split: str = "train"):
         d = self.cfg.data
+        if d.name == "coco":
+            from tpupose_torch.data.coco import CocoTopDownDataset
+
+            return CocoTopDownDataset.from_config(self.cfg, split)
         if d.name != "synthetic":
-            raise _unported("dataset", d.name,
-                            "Queue A item 5: data/coco.py waits for COCO "
-                            "files in the repository")
+            raise _unported("dataset", d.name, "Queue A item 12")
         from tpupose_torch.data.synthetic import SyntheticTopDownDataset
 
         n = 256 if split == "train" else 64

@@ -5,16 +5,22 @@ Ported: construction (builder, datasets and loaders, model, optimizer
 with per-group schedules, EMA, the train and eval steps, log file,
 tensorboard scalars, checkpoints), device prefetch of prepared batches,
 `iter_one_epoch` (img/s over the epoch, host sync only at the logged
-steps), loss-only `validate` (pad-mask weighting, EMA weights), `train`
-with the SIGTERM/SIGINT checkpoint guard, `save_checkpoint` and
-`load_checkpoint`. Not ported yet (ROADMAP Queue A): the other families,
-distillation, pretrained weights, the device mesh, and the metric
-`evaluate()` (so `eval.run_metrics` raises).
+steps), loss-only `validate` (pad-mask weighting, EMA weights), metric
+`evaluate` (flip test + DARK + back-projection + the metrics of
+`eval.metrics` over the valid set, `eval.dump_results`; in the epoch
+loop with `eval.run_metrics`), `train` with the SIGTERM/SIGINT
+checkpoint guard, `save_checkpoint` and `load_checkpoint`. Not ported
+yet (ROADMAP Queue A): the other families, distillation, pretrained
+weights, the device mesh, int8 evaluation (`eval.int8`,
+`eval.int8_engine`) and detection-box evaluation (`eval.det_boxes`).
 
 Runs on `device` (default "cuda"; raises where CUDA is absent). On the
 card a ViTPose step runs the flash-attention kernels K8 (forward) and K8b
 (backward) in every block; `train.remat` recomputes each block, K8
-included, in the backward.
+included, in the backward. `evaluate` of a SimpleBaseline-R50 at
+256x192 runs the stem (K1), layer1 (K2) and block2_0 (K3) kernels on
+weights folded from the current (EMA where tracked) parameters at each
+call, and the DARK decode kernel (K4).
 """
 
 from __future__ import annotations
@@ -50,9 +56,7 @@ class Trainer:
             raise ValueError("distillation (train.distill_cfg) is not ported "
                              "to tpupose_torch yet (ROADMAP Queue A item 5)")
         if cfg.eval.run_metrics:
-            raise ValueError("metric evaluation (eval.run_metrics) is not "
-                             "ported to tpupose_torch yet (ROADMAP Queue A "
-                             "item 4)")
+            self._check_eval_options()
         if cfg.loss.name not in ("joints_mse", "joints_mse_weighted"):
             raise ValueError(f"the port trains the heatmap family only; loss "
                              f"{cfg.loss.name!r} waits (ROADMAP Queue A "
@@ -83,6 +87,7 @@ class Trainer:
             udp=cfg.data.udp)
         self.eval_step = make_heatmap_eval_step()
         self.img_per_s = float("nan")       # the last epoch's figure
+        self._evaluator = None              # built by the first evaluate()
 
         exp_dir = os.path.join(cfg.train.output_dir, cfg.train.experiment)
         self.file_log = FileLogger(os.path.join(exp_dir, "log.txt"))
@@ -172,6 +177,87 @@ class Trainer:
             return float("nan")
         return total / n
 
+    def _check_eval_options(self):
+        """The evaluation options that are not ported yet raise."""
+        e = self.cfg.eval
+        if e.int8 or e.int8_engine:
+            raise ValueError("int8 evaluation (eval.int8, eval.int8_engine) "
+                             "is not ported to tpupose_torch yet (ROADMAP "
+                             "Queue A item 6: the XLA-style Int8Engine and "
+                             "ops/quant)")
+        if e.det_boxes:
+            raise ValueError("detection-box evaluation (eval.det_boxes) is "
+                             "not ported to tpupose_torch yet (ROADMAP "
+                             "Queue A item 11)")
+
+    def _build_eval_metrics(self):
+        """Metric objects from cfg.eval.metrics."""
+        from tpupose_torch.metrics import METRICS
+
+        out = []
+        for name in self.cfg.eval.metrics:
+            if name not in METRICS:
+                raise ValueError(f"unknown eval metric {name!r}")
+            if name == "pck":
+                out.append(METRICS[name](alpha=0.2))
+            elif name == "oks_ap":
+                out.append(METRICS[name](num_classes=1))
+            else:
+                out.append(METRICS[name]())
+        return out
+
+    def _get_evaluator(self):
+        """Build the evaluator once; at every call hand it the current eval
+        weights (the EMA where tracked), from which it re-folds the kernel
+        route's weights."""
+        from tpupose_torch.engine.evaluator import TopDownEvaluator
+
+        model = self.state.for_eval()
+        if self._evaluator is None:
+            # flip pairs come from the dataset (COCO defines its own);
+            # datasets without a joint-order convention flip unpaired
+            pairs = getattr(self.valid_ds, "flip_pairs", None)
+            if pairs is None and self.cfg.model.num_keypoints != 17:
+                pairs = np.zeros((0, 2), np.int64)
+            self._evaluator = TopDownEvaluator(
+                model, tuple(self.cfg.model.heatmap_size),
+                decode=self.cfg.eval.decode,
+                flip_test=self.cfg.eval.flip_test, flip_pairs=pairs,
+                blur_kernel=self.cfg.eval.blur_kernel,
+                sigma=self.cfg.data.sigma, udp=self.cfg.data.udp,
+                device=self.device)
+        else:
+            self._evaluator.refresh(model)
+        return self._evaluator
+
+    def _eval_batches(self):
+        """The valid loader with every batch carrying GT joints in source
+        coords (synthetic sets store joints in heatmap coords only)."""
+        from tpupose_torch.ops.affine import transform_preds
+
+        hm_size = tuple(self.cfg.model.heatmap_size)
+        for batch in self.valid_loader:
+            if "joints_src" not in batch:
+                batch = dict(batch)
+                batch["joints_src"] = transform_preds(
+                    torch.from_numpy(np.asarray(batch["joints"], np.float32)),
+                    torch.from_numpy(np.asarray(batch["center"], np.float32)),
+                    torch.from_numpy(np.asarray(batch["scale"], np.float32)),
+                    hm_size, udp=self.cfg.data.udp).numpy()
+            yield batch
+
+    def evaluate(self) -> dict:
+        """Metric evaluation for the heatmap family: flip test + DARK +
+        back-projection + the metrics of eval.metrics (PCK, MPJPE, COCO
+        OKS-AP, ...) over the valid set, on the eval weights; with
+        eval.dump_results also the COCO keypoint-results JSON."""
+        self._check_eval_options()
+        ev = self._get_evaluator()
+        out = ev.run(self._eval_batches(), self._build_eval_metrics(),
+                     results_path=self.cfg.eval.dump_results or None)
+        printM("eval: " + " ".join(f"{k}={v:.4f}" for k, v in out.items()))
+        return out
+
     def train(self):
         start_epoch = self.state.step // self.steps_per_epoch
         with self._checkpoint_on_signal():
@@ -223,6 +309,13 @@ class Trainer:
                 printM(f"epoch {epoch}: val_loss={val_loss:.5f}")
                 self.file_log.log(f"epoch {epoch}: val_loss={val_loss:.5f}")
                 self.tb.add_scalar("val/loss", val_loss, self.state.step)
+                if self.cfg.eval.run_metrics:
+                    metrics = self.evaluate()
+                    self.file_log.log(
+                        f"epoch {epoch}: "
+                        + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
+                    self.tb.add_scalars(metrics, self.state.step,
+                                        prefix="eval/")
             self.ckpt.save(self.state.step, self.state, metric=train_loss,
                            epoch=epoch)
         self.ckpt.save(self.state.step, self.state, force=True)

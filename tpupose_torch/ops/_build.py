@@ -131,5 +131,8 @@ def check(err: int, what: str):
 
 
 def stream_of(t: torch.Tensor) -> int:
-    """The current CUDA stream handle for tensor t's device, as an int."""
+    """The current CUDA stream handle for tensor t's device, as an int.
+    Makes t's device the current one first: the C entry points launch,
+    and key their launch setup, on the current device."""
+    torch.cuda.set_device(t.device)
     return torch.cuda.current_stream(t.device).cuda_stream
