@@ -135,6 +135,41 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
      kernel's launches must equal the train steps; evaluate() through
      CocoTopDownDataset with eval.dump_results, whose results JSON must
      hold one entry per kept instance, K1-K4 launching, with its img/s;
+  12. (after 11, in a second child process with 13, 13b and 14) HRNet-W32
+     training: Trainer(cfg, device="cuda") with the config of
+     tpupose/configs/method/hrnet_w32.yaml (256x192, 17 keypoints, bf16
+     autocast over float32 weights, Adam, multistep, B=64, device affine)
+     on synthetic data, cut to 3 of its 210 epochs: the warp kernel's
+     count, set to 0 before, equals the train steps after; losses finite
+     and falling; a fresh Trainer resumes to the same step with equal
+     parameters; one float32 step (TF32 off, fixed draws, noise pixels)
+     at B=2 on the card against the same step on the CPU in float32 and
+     in float64 (loss and grad_norm rtol 1e-3), and the same reading
+     printed for flax's init on the synthetic crops, where the CPU's
+     float32 is further from float64; the B=64 train step's img/s and
+     peak memory with and without train.remat; one COCO-format epoch
+     (B=16) on a seeded set, warp launches == steps;
+  13. HRNet-W48 384x288 evaluation: Trainer.evaluate() with the config
+     of hrnet_w48_384.yaml (flip, DARK, blur_kernel 17, sigma 3.0) on
+     the Builder's synthetic valid crops: exactly one K4 launch per eval
+     batch, finite metrics; the bf16 heatmaps against the model's
+     float32 forward (max rel 0.06, mean rel 5e-3); K4 at (64, 17, 96,
+     72) with 17 taps against its plain version (coords 1e-3, scores
+     equal); the flip predict's img/s at B=64 and 128;
+     cli.serve.build_predictor on that config answers one request, and
+     one with eval.int8_engine=true (the Int8Engine);
+  13b. the Int8Engine built from HRNet-W48 on 32 crops: heatmaps
+     against the float32 forward (max rel 0.15, mean rel 0.02), its card
+     output equal to its own CPU output (exact int32 products); flip
+     predict img/s of the Int8Engine and PTQ routes beside bf16;
+  14. SimpleBaseline-R50 256x192 with K=3 overfit on 8 synthetic crops:
+     the recipe's point (Adam 3e-3 to a loss below 1e-3) printed, with
+     every route's distance from the bf16 and float32 forwards and the
+     maps of the joints a route moves (see int8_metric_phase); then Adam
+     1e-3 past 1e-3 (printed there too) to 1e-4, the bf16 forward's
+     PCK@0.2 1.0, and the bf16 kernel route (K1-K4), CudaServingEngine
+     (K5/K6), the Int8Engine and the PTQ intercept each within 0.005 PCK
+     and 1 crop px mean keypoint distance of the bf16 forward;
   9. device times under torch.profiler, last: K8, its plain version and
      SDPA at both shapes (their `ms`, `plain_ms`, `library_ms`: a K8
      launch is shorter than its wrapper's Python, so CUDA events around
@@ -149,15 +184,17 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
   6. a JSON line of every kernel's numbers, then the last line
      {"ok": true, "device": {...}}.
 
-Phases run in the order 1-5, 7, 3d, 3e, 4c, 8, 10, 11, 9, 6. Exits
+Phases run in the order 1-5, 7, 3d, 3e, 4c, 8, 10, 11, 12-14, 9, 6. Exits
 non-zero without printing a result where CUDA is unavailable. Needs one
 card; imports nothing of JAX. Writes only under build/ of the checkout
-(the kernels, the native host-IO library, the phase-7 and phase-10
-checkpoints and the phase-11 data, removed at the end).
+(the kernels, the native host-IO library, the phase-7, phase-10 and
+phase-12 checkpoints and the phase-11 and phase-12 data, removed at the
+end). Each phase from 12 on prints its seconds.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import io
 import json
@@ -380,15 +417,15 @@ def as_conv_weights(w):
             if v.dim() == 4 else v for k, v in out.items()}
 
 
-def gaussian_maps(n, k, hh, ww, seed):
-    """Seeded Gaussian-peaked maps (sigma 2), one zero map per image."""
+def gaussian_maps(n, k, hh, ww, seed, sigma=2.0):
+    """Seeded Gaussian-peaked maps, one zero map per image."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     mu = torch.rand((n, k, 2), generator=g, device="cuda")
     mu = mu * torch.tensor([ww - 4.0, hh - 4.0], device="cuda") + 2.0
     ys = torch.arange(hh, device="cuda", dtype=torch.float32)[:, None]
     xs = torch.arange(ww, device="cuda", dtype=torch.float32)[None, :]
     hm = torch.exp(-((xs - mu[..., 0, None, None]) ** 2
-                     + (ys - mu[..., 1, None, None]) ** 2) / 8.0)
+                     + (ys - mu[..., 1, None, None]) ** 2) / (2 * sigma ** 2))
     hm[:, 0] = 0.0
     return hm.contiguous()
 
@@ -724,7 +761,6 @@ def vit_train_phase(results):
     against remat, then train-step img/s of three attention routes and
     peak memory with remat off and on. Fills the K8/K8b rows' training
     launch counts."""
-    from tpupose_torch.configs import default_config
     from tpupose_torch.configs.default import OptimizerConfig
     from tpupose_torch.engine.optimizers import make_optimizer
     from tpupose_torch.engine.train_state import (TrainState,
@@ -741,14 +777,11 @@ def vit_train_phase(results):
 
     out_dir = ROOT / "build" / "chip_smoke_vit_train"
     shutil.rmtree(out_dir, ignore_errors=True)
-    cfg = default_config()
-    cfg.merge_dict(VITPOSE_S)
-    cfg.merge_dotted({
+    cfg = _cfg(VITPOSE_S, {
         # depth cut: 3 of 210 epochs; warmup 1 epoch instead of 3, or the
         # lr would still be ramping from 0 at the end of the run
         "train.epochs": "3", "train.warmup_epochs": "1",
         "train.output_dir": str(out_dir)})
-    cfg.freeze()
     tr = Trainer(cfg, device="cuda")
     step_losses, step_launches = [], []
     step_fn = tr.train_step
@@ -976,16 +1009,23 @@ def loader_ips(loader) -> float:
     return n / (time.perf_counter() - t0)
 
 
-def _eval_trainer(over: dict):
-    """Trainer(device="cuda") on the simple_baseline config + `over`."""
+def _cfg(base: dict, over: dict):
+    """The port's default config with `base` (a yaml written out as a
+    dict) and the dotted overrides `over`, frozen."""
     from tpupose_torch.configs import default_config
-    from tpupose_torch.engine.trainer import Trainer
 
     cfg = default_config()
-    cfg.merge_dict(SIMPLE_BASELINE)
+    cfg.merge_dict(base)
     cfg.merge_dotted(over)
     cfg.freeze()
-    return Trainer(cfg, device="cuda")
+    return cfg
+
+
+def _eval_trainer(over: dict):
+    """Trainer(device="cuda") on the simple_baseline config + `over`."""
+    from tpupose_torch.engine.trainer import Trainer
+
+    return Trainer(_cfg(SIMPLE_BASELINE, over), device="cuda")
 
 
 def _r50_wrappers() -> dict:
@@ -1174,6 +1214,670 @@ def coco_phase(results):
     shutil.rmtree(coco_root, ignore_errors=True)
     shutil.rmtree(EVAL_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
+
+
+# tpupose/configs/method/hrnet_w32.yaml and hrnet_w48_384.yaml (the graded
+# HRNet configs, BASELINE.json:9-10), written out as SIMPLE_BASELINE is;
+# the yamls name COCO, the card trains and evaluates on the Builder's
+# synthetic set (and phase 12 on a COCO-format set it writes)
+HRNET_W32 = {
+    "model": {"name": "hrnet", "backbone": "hrnet_w32", "num_keypoints": 17,
+              "heatmap_size": [64, 48], "freeze_backbone": False},
+    "data": {"name": "synthetic", "image_size": [256, 192], "sigma": 2.0,
+             "scale_factor": 0.35, "rotation_factor": 45.0,
+             "flip_prob": 0.5, "device_affine": True},
+    "train": {"batch_size": 64, "epochs": 210, "warmup_epochs": 1},
+    "loss": {"name": "joints_mse"},
+    "optimizer": {"name": "adam", "lr": 1.0e-3},
+    "lr_scheduler": {"name": "multistep", "milestones": [170, 200],
+                     "gamma": 0.1},
+    "eval": {"flip_test": True, "decode": "dark"},
+}
+HRNET_W48 = {
+    "model": {"name": "hrnet", "backbone": "hrnet_w48", "num_keypoints": 17,
+              "heatmap_size": [96, 72], "freeze_backbone": False},
+    "data": {"name": "synthetic", "image_size": [384, 288], "sigma": 3.0},
+    "train": {"batch_size": 32, "epochs": 210},
+    "loss": {"name": "joints_mse"},
+    "optimizer": {"name": "adam", "lr": 1.0e-3},
+    "lr_scheduler": {"name": "multistep", "milestones": [170, 200],
+                     "gamma": 0.1},
+    "eval": {"flip_test": True, "decode": "dark", "blur_kernel": 17},
+}
+HR_DIR = ROOT / "build" / "chip_smoke_hrnet"
+
+
+def _step_ips(step, state, batch, n=10):
+    """img/s of `n` train steps on a device batch after 2 warm-up steps,
+    and the peak device memory (GiB) of those steps."""
+    for _ in range(2):
+        step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        met = step(state, batch)
+    torch.cuda.synchronize()
+    if not np.isfinite(met["loss"].item()):
+        raise AssertionError("train step loss not finite")
+    return (len(batch["images"]) * n / (time.perf_counter() - t0),
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _predict_ips(pred, crops, n=5):
+    pred(crops)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        pred(crops)
+    return len(crops) * n / (time.perf_counter() - t0)
+
+
+def _mse64(pred, target, target_weight):
+    """joints_mse_loss's formula (NHWK) in float64: joints_mse_loss
+    itself sums in float32."""
+    pred, target, tw = pred.double(), target.double(), target_weight.double()
+    se = (pred - target) ** 2 * tw[:, None, None, :]
+    per_px = pred.numel() / (pred.shape[0] * pred.shape[-1])
+    return 0.5 * se.sum() / (tw.sum().clamp_min(1.0) * per_px)
+
+
+def _f32_step_reading(model, batch, aug):
+    """One Adam step (clip 10, draws of step 0) of a copy of `model` (a
+    float32 HRNetPose on the CPU) on the card and on the CPU in float32,
+    and on the CPU in float64 (head and loss too): the losses and grad
+    norms, and their relative differences."""
+    from tpupose_torch.configs.default import OptimizerConfig
+    from tpupose_torch.engine.optimizers import make_optimizer
+    from tpupose_torch.engine.train_state import (TrainState,
+                                                  make_heatmap_train_step)
+    from tpupose_torch.losses.heatmap import joints_mse_loss
+
+    draws = make_heatmap_train_step(joints_mse_loss, **aug).draws_for(
+        0, batch["images"].shape[0], "cpu")
+    out = {}
+    for key, dev, dt in (("cpu", "cpu", torch.float32),
+                         ("card", "cuda", torch.float32),
+                         ("cpu64", "cpu", torch.float64)):
+        m = copy.deepcopy(model).to(device=dev, dtype=dt)
+        m.compute_dtype = m.param_dtype = dt
+        step = make_heatmap_train_step(
+            joints_mse_loss if dt == torch.float32 else _mse64, **aug)
+        opt = make_optimizer(OptimizerConfig(name="adam", lr=1e-3),
+                             m.named_parameters(), grad_clip_norm=10.0)
+        met = step(TrainState(m, opt),
+                   {k: v.to(dev) for k, v in batch.items()},
+                   draws={k: tuple(t.to(dev) for t in v)
+                          for k, v in draws.items()})
+        out[key] = (met["loss"].item(), met["grad_norm"].item())
+        del m, opt
+    rel = {}
+    for i, name in enumerate(("loss", "grad_norm")):
+        rel[f"{name}_rel"] = {
+            f"{a}_vs_{b}": abs(out[a][i] / out[b][i] - 1)
+            for a, b in (("card", "cpu"), ("cpu", "cpu64"),
+                         ("card", "cpu64"))}
+    return dict(values=out, **rel)
+
+
+def hrnet_train_phase(results):
+    """Phase 12: HRNet-W32 256x192 training through Trainer (K7 once a
+    step), exact resume, a float32 step card = CPU, the B=64 step's img/s
+    and peak memory with and without remat, one COCO-format epoch."""
+    from tpupose_torch.configs.default import OptimizerConfig
+    from tpupose_torch.engine.optimizers import make_optimizer
+    from tpupose_torch.engine.train_state import (TrainState,
+                                                  make_heatmap_train_step)
+    from tpupose_torch.engine.trainer import Trainer
+    from tpupose_torch.losses.heatmap import joints_mse_loss
+    from tpupose_torch.models.backbones.hrnet import HRNetPose
+    from tpupose_torch.models.simple_baseline import init_like_flax
+    from tpupose_torch.ops.cuda_warp import affine_warp
+
+    t_phase = time.perf_counter()
+    out_dir = HR_DIR / "train"
+    # depth cut: 3 of 210 epochs (the multistep schedule's first epochs do
+    # not depend on the total)
+    cfg = _cfg(HRNET_W32, {"train.epochs": "3",
+                           "train.output_dir": str(out_dir)})
+    tr = Trainer(cfg, device="cuda")
+    if tr.model.backbone_name != "hrnet_w32" or tr._evaluator is not None:
+        raise AssertionError("Trainer did not build HRNet-W32")
+    step_losses, step_fn = [], tr.train_step
+
+    def recording_step(state, batch, draws=None):
+        m = step_fn(state, batch, draws)
+        step_losses.append(m["loss"])
+        return m
+
+    tr.train_step = recording_step
+    torch.cuda.synchronize()
+    affine_warp.launches = 0
+    t0 = time.perf_counter()
+    tr.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    n_steps, n_warp = tr.state.step, affine_warp.launches
+    losses = torch.stack(step_losses).float().cpu()
+    spe = tr.steps_per_epoch
+    first, last = losses[:spe].mean().item(), losses[-spe:].mean().item()
+    log(f"phase 12 trainer (HRNet-W32 256x192, B=64, bf16 autocast, Adam, "
+        f"device affine): {n_steps} steps in {train_s:.1f} s, warp launches "
+        f"{n_warp}; losses {[round(v, 6) for v in losses.tolist()]}; epoch "
+        f"mean {first:.6f} -> {last:.6f}; trainer img/s (last epoch) "
+        f"{tr.img_per_s:.1f}")
+    if n_warp != n_steps or n_steps != 3 * spe:
+        raise AssertionError(f"warp launches {n_warp} != train steps "
+                             f"{n_steps} (expected {3 * spe})")
+    if not (torch.isfinite(losses).all() and last < first):
+        raise AssertionError("HRNet training losses not finite or not "
+                             "falling")
+    tr2 = Trainer(cfg, device="cuda")
+    if tr2.load_checkpoint() != n_steps or tr2.state.step != n_steps:
+        raise AssertionError("HRNet resume did not restore the step")
+    for (k, a_), b_ in zip(tr.model.state_dict().items(),
+                           tr2.model.state_dict().values()):
+        if not torch.equal(a_, b_):
+            raise AssertionError(f"HRNet resume: {k} differs")
+    results["affine_warp"]["launches_hrnet_train"] = n_warp
+    trainer_ips = tr.img_per_s
+    del tr, tr2
+    torch.cuda.empty_cache()
+
+    # one float32 step (TF32 off, fixed draws) at B=2: card vs CPU, each
+    # beside the CPU in float64. Gated (the card within 1e-3 of both):
+    # noise pixels and the seeded He init with non-trivial BatchNorm
+    # statistics. Printed only: the synthetic
+    # set's mostly black crops from flax's init (whose heatmaps carry a
+    # large constant offset that train-mode BatchNorm's backward then
+    # cancels), where the CPU's float32 sum is off float64 by more than
+    # the gate's 1e-3 (the card's is not)
+    aug = dict(color_jitter_strength=0.2, jitter_seed=0, heatmap_size=(64, 48),
+               sigma=2.0, affine_rotation=45.0, affine_scale=0.35)
+    b2 = synthetic_batch(2, seed=8)
+    noise = dict(b2, images=torch.from_numpy(np.random.RandomState(8).randint(
+        0, 256, tuple(b2["images"].shape)).astype(np.uint8)))
+    he = HRNetPose("hrnet_w32", K, dtype=torch.float32, device="cpu",
+                   generator=torch.Generator().manual_seed(7))
+    flax_init = HRNetPose("hrnet_w32", K, dtype=torch.float32, device="cpu")
+    init_like_flax(flax_init, torch.Generator().manual_seed(7))
+    reads = {}
+    for label, m0, batch in (("noise pixels, He init (gated)", he, noise),
+                             ("synthetic crops, flax init (printed)",
+                              flax_init, b2)):
+        reads[label] = _f32_step_reading(m0, batch, aug)
+        log(f"float32 HRNet-W32 train step, B=2, {label}: "
+            + json.dumps(reads[label]))
+    gated = reads["noise pixels, He init (gated)"]
+    if not all(gated[f"{q}_rel"][f"card_vs_{ref}"] <= 1e-3
+               for q in ("loss", "grad_norm") for ref in ("cpu", "cpu64")):
+        raise AssertionError("the card's float32 HRNet step differs from "
+                             "the CPU's, in float32 or float64")
+    results["affine_warp"]["hrnet_w32_float32_step"] = reads
+    del he, flax_init
+
+    # train-step img/s and peak memory at B=64 on a device batch, remat
+    # off and on (bf16 autocast over float32 masters, Adam, device affine)
+    rates = {}
+    bb = {k: v.cuda() for k, v in synthetic_batch(64, seed=10).items()}
+    for remat in (False, True):
+        tm = HRNetPose("hrnet_w32", K, dtype=torch.bfloat16, device="cpu",
+                       param_dtype=torch.float32, remat=remat)
+        init_like_flax(tm, torch.Generator().manual_seed(9))
+        tm = tm.cuda()
+        tstate = TrainState(tm, make_optimizer(
+            OptimizerConfig(name="adam", lr=1e-3), tm.named_parameters(),
+            is_head=lambda n: not n.startswith("backbone"),
+            grad_clip_norm=10.0))
+        ips, peak = _step_ips(make_heatmap_train_step(joints_mse_loss, **aug),
+                              tstate, bb)
+        rates[f"remat_{int(remat)}"] = {"img_per_s": ips, "peak_gib": peak}
+        del tm, tstate
+        torch.cuda.empty_cache()
+    log(f"HRNet-W32 train img/s: trainer at B=64 (last epoch, host data "
+        f"included) {trainer_ips:.1f}; train step at B=64 (device batch, "
+        f"bf16 autocast, Adam, device affine) with peak device memory "
+        f"{json.dumps(rates)}")
+    results["affine_warp"]["hrnet_w32_train"] = dict(
+        trainer_img_per_s=trainer_ips, step_b64=rates)
+    del bb
+
+    # one COCO-format epoch (device affine: K7 once a step)
+    coco_root = HR_DIR / "coco"
+    n_kept = write_coco_set(coco_root)
+    trc = Trainer(_cfg(HRNET_W32, {
+        "data.name": "coco", "data.root": str(coco_root), "train.epochs": "1",
+        "train.batch_size": "16", "train.output_dir": str(HR_DIR / "ctr")}),
+        device="cuda")
+    torch.cuda.synchronize()
+    affine_warp.launches = 0
+    t0 = time.perf_counter()
+    trc.train()
+    torch.cuda.synchronize()
+    n_steps, n_warp = trc.state.step, affine_warp.launches
+    log(f"HRNet-W32 COCO-format epoch ({n_kept} instances, B=16, device "
+        f"affine): {n_steps} steps, warp launches {n_warp}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    if n_steps != trc.steps_per_epoch or n_warp != n_steps or n_steps < 1:
+        raise AssertionError("HRNet COCO epoch: warp launches != steps")
+    del trc
+    torch.cuda.empty_cache()
+    log(f"phase 12 seconds: {time.perf_counter() - t_phase:.1f}")
+
+
+def hrnet_eval_phase(results):
+    """Phase 13 (HRNet-W48 384x288 evaluation with flip + DARK on K4 at
+    96x72, 17 taps; the flip predict's img/s; cli.serve) and 13b (the
+    Int8Engine on HRNet-W48)."""
+    from tpupose_torch.cli.serve import build_predictor
+    from tpupose_torch.engine.predictor import HeatmapPredictor
+    from tpupose_torch.engine.trainer import Trainer
+    from tpupose_torch.ops.cuda_decode import (dark_decode,
+                                               dark_decode_reference)
+    from tpupose_torch.ops.int8_engine import Int8Engine
+    from tpupose_torch.ops.preprocess import normalize_images
+
+    t_phase = time.perf_counter()
+    cfg = _cfg(HRNET_W48, {"train.output_dir": str(HR_DIR / "w48")})
+    tr = Trainer(cfg, device="cuda")
+    torch.cuda.synchronize()
+    dark_decode.launches = 0
+    out = tr.evaluate()
+    torch.cuda.synchronize()
+    n_batches = len(tr.valid_loader)
+    log(f"phase 13 Trainer.evaluate() (HRNet-W48 384x288, flip, DARK, blur "
+        f"17, sigma 3.0, {len(tr.valid_ds)} synthetic crops, B="
+        f"{cfg.eval.batch_size}): {_fmt(out)}; dark_decode launches "
+        f"{dark_decode.launches} for {n_batches} eval batches")
+    if dark_decode.launches != n_batches or not all(
+            np.isfinite(out[k]) for k in ("mpjpe",) + METRIC_KEYS):
+        raise AssertionError("W48 evaluate(): not one K4 launch per eval "
+                             "batch, or metrics not finite")
+    results["dark_decode"]["launches_w48_evaluate"] = dark_decode.launches
+    model = tr.state.for_eval()
+    ev = tr._evaluator
+    crops = torch.from_numpy(np.stack([tr.valid_ds[i]["image"]
+                                       for i in range(32)])).cuda()
+
+    @torch.no_grad()
+    def forward32(images):
+        """The model's float32 forward (its masters, autocast off)."""
+        model.compute_dtype = torch.float32
+        try:
+            return model(normalize_images(images).float()).float()
+        finally:
+            model.compute_dtype = torch.bfloat16
+
+    with torch.no_grad():
+        hm_bf = ev.forward(normalize_images(crops)).float()
+    hm_32 = forward32(crops)
+    _, mrel, meanrel = rel_err(hm_bf, hm_32)
+    log(f"W48 bf16 heatmaps vs the float32 forward: max_rel {mrel:.4g} "
+        f"(<0.06), mean_rel {meanrel:.4g} (<5e-3), shape "
+        f"{tuple(hm_bf.shape)}")
+    if not (torch.isfinite(hm_bf).all() and mrel < 0.06 and meanrel < 5e-3):
+        raise AssertionError("W48 bf16 heatmaps disagree with float32")
+
+    # K4 at 96x72 with 17 taps, sigma 3: held against its plain version on
+    # Gaussian maps (sigma 3, as phase 3 at 64x48), where DARK's Newton
+    # step is well posed. On the random model's flip-merged maps, which
+    # are nearly flat, the step is ill-conditioned and the two summation
+    # orders move the sub-pixel offset; there the scores (the maxima) must
+    # be equal and the coordinates less than 1 px apart (the same peak),
+    # and their difference is printed
+    big = torch.from_numpy(np.stack([tr.valid_ds[i % len(tr.valid_ds)]
+                                     ["image"] for i in range(128)]))
+    hm = gaussian_maps(64, K, 96, 72, seed=12, sigma=3.0)
+    gc, gs = dark_decode(hm, 17, 3.0)
+    rc, rs = dark_decode_reference(hm, 17, 3.0)
+    torch.cuda.synchronize()
+    cerr = (gc - rc).abs().max().item()
+    if not (torch.equal(gs, rs) and cerr <= 1e-3):
+        raise AssertionError(f"dark_decode at 96x72/17 taps: coords max err "
+                             f"{cerr} > 1e-3 or scores differ")
+    hm_m = ev.heatmaps(big[:64].cuda())
+    mc, ms = dark_decode(hm_m, 17, 3.0)
+    pc, ps = dark_decode_reference(hm_m, 17, 3.0)
+    model_err = (mc - pc).abs().max().item()
+    if not (torch.equal(ms, ps) and model_err < 1.0):
+        raise AssertionError("dark_decode on the W48 maps: scores or peaks "
+                             "differ from the plain version")
+    ci = rc.long()
+    inner = ((rs > 0) & (ci[..., 0] >= 1) & (ci[..., 0] <= 70)
+             & (ci[..., 1] >= 1) & (ci[..., 1] <= 94)).sum().item()
+    _, f32_peak, hbm, _ = PEAKS["PCIe" if "PCIe" in torch.cuda
+                                .get_device_name(0) else "SXM"]
+    d_flops = hm.numel() + inner * (2 * 289 * 9 + 9 * 20 + 40)
+    b_ms, b_by = bound_ms(d_flops, nbytes(hm) + hm.shape[0] * K * 3 * 4,
+                          f32_peak, hbm)
+    row = dict(shape=list(hm.shape), blur_kernel=17, sigma=3.0,
+               max_abs_err=cerr, interior_peaks=inner,
+               model_maps_max_abs_err=model_err,
+               ms=cuda_ms(lambda: dark_decode(hm, 17, 3.0)),
+               plain_ms=cuda_ms(lambda: dark_decode_reference(hm, 17, 3.0)),
+               bound_ms=b_ms, bound_by=b_by,
+               launches=results["dark_decode"]["launches_w48_evaluate"])
+    results["dark_decode"]["hrnet_w48_96x72"] = row
+    log("kernel dark_decode at (64, 17, 96, 72), 17 taps, sigma 3 "
+        "(Gaussian maps; model_maps_max_abs_err on the W48 flip-merged "
+        "maps): " + json.dumps(row))
+
+    # the flip predict's img/s at B=64 and 128 (uint8 host crops -> host
+    # source coords)
+    rates = {}
+    pred = HeatmapPredictor(model, (96, 72), flip_test=True)
+    for nb in (64, 128):
+        rates[f"bf16_B{nb}"] = _predict_ips(pred, big[:nb].numpy())
+    log(f"W48 384x288 flip predict img/s: {json.dumps(rates)}")
+
+    # cli.serve on the hrnet_w48_384 config: one request, then one through
+    # eval.int8_engine (the Int8Engine)
+    for over in ({}, {"eval.int8_engine": "true"}):
+        p = build_predictor(_cfg(HRNET_W48, over), "", "cuda")
+        dark_decode.launches = 0
+        c, sc = p(big[:1].numpy())
+        if c.shape != (1, K, 2) or not np.isfinite(c).all() \
+                or dark_decode.launches < 1 or (
+                    bool(over) != isinstance(p.evaluator.int8_engine,
+                                             Int8Engine)):
+            raise AssertionError(f"cli.serve W48 {over}: bad answer")
+        log(f"cli.serve hrnet_w48_384 {over or '(bf16)'}: one request, "
+            f"{K} keypoints, K4 launches {dark_decode.launches}")
+        del p
+    log(f"phase 13 seconds: {time.perf_counter() - t_phase:.1f}")
+
+    # -- 13b: the Int8Engine and the PTQ intercept on HRNet-W48 ------------
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    eng = Int8Engine.build(model, calib=crops, device="cuda")
+    build_s = time.perf_counter() - t0
+    hm_8 = eng(crops)
+    _, mrel, meanrel = rel_err(hm_8, hm_32)
+    cpu = Int8Engine(eng._nodes, {k: tuple(t.cpu() for t in v)
+                                  for k, v in eng._qw.items()},
+                     eng._scales, eng._pad, eng._in_pad, device="cpu")
+    hm_c = cpu(crops[:2].cpu())
+    n_diff = (hm_8[:2].cpu() != hm_c).sum().item()
+    log(f"phase 13b Int8Engine (HRNet-W48, built in {build_s:.1f} s on 32 "
+        f"crops): heatmaps vs float32 max_rel {mrel:.4g} (<0.15), mean_rel "
+        f"{meanrel:.4g} (<0.02); card vs CPU on 2 crops: {n_diff} of "
+        f"{hm_c.numel()} elements differ")
+    if not (torch.isfinite(hm_8).all() and mrel < 0.15 and meanrel < 0.02):
+        raise AssertionError("Int8Engine W48 heatmaps out of bounds")
+    if n_diff:
+        raise AssertionError("Int8Engine: the card's output differs from "
+                             "its own CPU output")
+    scales = HeatmapPredictor.calibrate_int8(model, crops)
+    for label, kw in (("int8_engine", {"int8_engine": eng}),
+                      ("ptq", {"quant_scales": scales})):
+        p = HeatmapPredictor(model, (96, 72), flip_test=True, **kw)
+        rates[f"{label}_B64"] = _predict_ips(p, big[:64].numpy(), n=3)
+    log(f"W48 384x288 flip predict img/s, bf16 / Int8Engine / PTQ: "
+        f"{json.dumps(rates)}")
+    results["dark_decode"]["hrnet_w48_predict_img_per_s"] = rates
+    del tr, model, ev, eng, cpu, pred
+    torch.cuda.empty_cache()
+    log(f"phase 13b seconds: {time.perf_counter() - t_phase:.1f}")
+
+
+def _fit_r50_k3(batch, lr, stop_loss, max_steps=4000, check=50):
+    """SimpleBaseline-R50 256x192 with K = 3 from the seed-0 flax-like
+    init, Adam `lr` (clip 10) on the one batch of 8 crops until the loss
+    (read every `check` steps) is below `stop_loss`. Yields (steps, loss,
+    model) at every read: the caller stops or reads the routes there."""
+    from tpupose_torch.configs.default import OptimizerConfig
+    from tpupose_torch.engine.optimizers import make_optimizer
+    from tpupose_torch.engine.train_state import (TrainState,
+                                                  make_heatmap_train_step)
+    from tpupose_torch.losses.heatmap import joints_mse_loss
+    from tpupose_torch.models.simple_baseline import (SimpleBaseline,
+                                                      init_like_flax)
+
+    model = SimpleBaseline("resnet50", 3, dtype=torch.bfloat16, device="cpu",
+                           param_dtype=torch.float32)
+    init_like_flax(model, torch.Generator().manual_seed(0))
+    model = model.cuda()
+    state = TrainState(model, make_optimizer(
+        OptimizerConfig(name="adam", lr=lr), model.named_parameters(),
+        grad_clip_norm=10.0))
+    step = make_heatmap_train_step(joints_mse_loss, heatmap_size=(64, 48))
+    n, loss = 0, float("inf")
+    while n < max_steps and loss >= stop_loss:
+        for _ in range(check):
+            met = step(state, batch)
+        n += check
+        loss = met["loss"].item()
+        yield n, loss, model
+
+
+@contextlib.contextmanager
+def _fake_quant(model, scales, acts=True, weights=True):
+    """PTQ's int8 scheme simulated in the model's own float forward, an
+    independent witness of ops/quant: each calibrated layer's input
+    rounded to its per-tensor grid (amax / 127, clamped to +-127) and its
+    weight to a per-output-channel max-abs grid, the products in the
+    model's float type. Weights are restored on exit."""
+    hooks, saved = [], []
+
+    def grid(s):
+        return lambda mod, a: (torch.clamp(torch.round(
+            a[0] * (127.0 / s)), -127, 127) * (s / 127.0),)
+
+    try:
+        for name, mod in model.named_modules():
+            s = scales.get(name)
+            if s is None:
+                continue
+            if acts:
+                hooks.append(mod.register_forward_pre_hook(grid(s)))
+            if weights:
+                w = mod.weight.data
+                od = 1 if isinstance(mod, torch.nn.ConvTranspose2d) else 0
+                ws = w.abs().amax(dim=tuple(d for d in range(w.dim())
+                                            if d != od),
+                                  keepdim=True).clamp_min(1e-8)
+                saved.append((w, w.clone()))
+                w.copy_(torch.round(w / ws * 127.0) * (ws / 127.0))
+        yield model
+    finally:
+        for h in hooks:
+            h.remove()
+        for w, orig in saved:
+            w.copy_(orig)
+
+
+def _routes_reading(model, imgs, gt, vis):
+    """The K = 3 R50's coordinates through the float32 forward, the bf16
+    forward, the four routes (bf16 kernels K1-K4, CudaServingEngine,
+    Int8Engine, PTQ) and PTQ's scheme simulated in float32 (`_fake_quant`:
+    activations and weights, each alone), each one's PCK@0.2, mean
+    keypoint distance (crop px) from bf16 and from float32, and its maps
+    against float32's (max and mean abs difference over the max). A bf16
+    map's second-peak ratio is its highest value more than 2 heatmap px
+    from the peak over the peak (near 1: two near-equal maxima, so a
+    small change of the map may move the argmax far); its median and max
+    over the visible joints are given, and for every visible joint that
+    some route puts more than 4 crop px (one heatmap px) from bf16 the
+    witness: its distances, its map's peak and second-peak ratio."""
+    from tpupose_torch.engine.evaluator import TopDownEvaluator
+    from tpupose_torch.engine.predictor import HeatmapPredictor
+    from tpupose_torch.metrics.pck import PCK
+    from tpupose_torch.ops.cuda_engine import CudaServingEngine
+    from tpupose_torch.ops.int8_engine import Int8Engine
+
+    model.eval()
+    n = imgs.shape[0]
+    centers = np.tile([[W / 2, H / 2]], (n, 1)).astype(np.float32)
+    scales = np.tile([[W, H]], (n, 1)).astype(np.float32)
+
+    def evaluator(**kw):
+        return TopDownEvaluator(model, (64, 48), flip_test=False,
+                                device="cuda", **kw)
+
+    images = torch.as_tensor(imgs, device="cuda")
+    maps = {}
+
+    def coords(label, **kw):
+        ev = evaluator(**kw)
+        maps[label] = ev.heatmaps(images).cpu()
+        return ev.step(imgs, centers, scales)[0].cpu().numpy()
+
+    def pck(c):
+        m = PCK(alpha=0.2)
+        m.update(c, gt, vis)
+        return float(m.compute()["pck"])
+
+    c = {"bf16": coords("bf16", fast_r50=False)}
+    q = HeatmapPredictor.calibrate_int8(model, imgs)
+    model.compute_dtype = torch.float32
+    try:
+        c["float32"] = coords("float32", fast_r50=False)
+        for label, kw in (("fake_quant_float32", {}),
+                          ("fake_quant_acts_only", dict(weights=False)),
+                          ("fake_quant_weights_only", dict(acts=False))):
+            with _fake_quant(model, q, **kw):
+                c[label] = coords(label, fast_r50=False)
+    finally:
+        model.compute_dtype = torch.bfloat16
+    c["bf16_kernels_K1_K4"] = coords("bf16_kernels_K1_K4")
+    c["cuda_serving_engine_K5_K6"] = coords(
+        "cuda_serving_engine_K5_K6",
+        int8_engine=CudaServingEngine.build(model, imgs, device="cuda"))
+    c["int8_engine"] = coords("int8_engine", int8_engine=Int8Engine.build(
+        model, calib=imgs, device="cuda"))
+    c["ptq"] = coords("ptq", quant_scales=q)
+    m = vis > 0
+    dist = {r: np.linalg.norm(v - c["bf16"], axis=-1) for r, v in c.items()}
+    dist32 = {r: np.linalg.norm(v - c["float32"], axis=-1)
+              for r, v in c.items()}
+    rows = {"bf16": {"pck": pck(c["bf16"]), "mean_px_vs_gt": float(
+        np.linalg.norm(c["bf16"] - gt, axis=-1)[m].mean())}}
+    for r in c:
+        if r != "bf16":
+            _, mrel, meanrel = rel_err(maps[r], maps["float32"])
+            rows[r] = {"pck": pck(c[r]),
+                       "pck_delta": abs(pck(c[r]) - rows["bf16"]["pck"]),
+                       "mean_px_vs_bf16": float(dist[r][m].mean()),
+                       "mean_px_vs_float32": float(dist32[r][m].mean()),
+                       "maps_vs_float32": {"max_rel": mrel,
+                                           "mean_rel": meanrel}}
+    def second_peak_ratio(hm):
+        y0, x0 = divmod(int(hm.argmax()), hm.shape[1])
+        rest = hm.clone()
+        rest[max(0, y0 - 2):y0 + 3, max(0, x0 - 2):x0 + 3] = -float("inf")
+        return rest.max().item() / hm.max().item()
+
+    ratios = [second_peak_ratio(maps["bf16"][i, k])
+              for i, k in zip(*np.nonzero(m))]
+    rows["bf16"]["second_peak_ratio"] = {"median": float(np.median(ratios)),
+                                         "max": float(np.max(ratios))}
+    witness = []
+    moved = np.stack([dist[r] for r in c]).max(0) > 4.0
+    for i, k in zip(*np.nonzero(moved & m)):
+        hm = maps["bf16"][i, k]
+        peak = hm.max().item()
+        witness.append(dict(
+            crop=int(i), joint=int(k), bf16_peak=peak,
+            second_peak_ratio=second_peak_ratio(hm),
+            bf16_px_from_gt=float(np.linalg.norm(c["bf16"][i, k]
+                                                 - gt[i, k])),
+            px_from_bf16={r: float(d[i, k]) for r, d in dist.items()},
+            px_from_float32={r: float(d[i, k]) for r, d in dist32.items()}))
+    return rows, witness
+
+
+def int8_metric_phase(results):
+    """Phase 14: SimpleBaseline-R50 256x192 with K = 3 overfit on 8
+    synthetic crops, then PCK and keypoint distance of four routes
+    against the bf16 forward: the bf16 kernel route (K1-K4),
+    CudaServingEngine (K5/K6), Int8Engine and the PTQ intercept.
+
+    The recipe is tests/test_int8_metric_parity.py's at full size: Adam
+    3e-3 until the loss is below 1e-3. Its bar sits 25x below the
+    predict-zero plateau of the test's 16x16 maps (0.0246); at 64x48
+    maps the plateau is 0.0020, so 1e-3 is met while the maps do not yet
+    peak: several joints have two near-equal maxima (second-peak ratio
+    0.85-0.98), where the ~2% map error of int8 (the same in the float32
+    simulation of PTQ's scheme as in the routes) moves a joint by tens of
+    px. That point is printed with its witness, ungated. The gate is on a
+    model trained past it, from the same init, to 1e-4, the recipe's
+    factor below the plateau, at Adam 1e-3, where the maps peak; its
+    1e-3 crossing is printed too."""
+    from tpupose_torch.data.synthetic import SyntheticTopDownDataset
+
+    t_phase = time.perf_counter()
+    ds = SyntheticTopDownDataset(8, (H, W), (64, 48), 3, seed=0)
+    smp = [ds[i] for i in range(8)]
+    imgs = np.stack([x["image"] for x in smp])
+    joints = np.stack([x["joints"] for x in smp])
+    vis = np.stack([x["visibility"] for x in smp])
+    gt = joints * 4.0                                # crop px (stride 4)
+    batch = {"images": torch.from_numpy(imgs).cuda(),
+             "joints": torch.from_numpy(joints).cuda(),
+             "visibility": torch.from_numpy(vis).cuda()}
+    readings = {}
+
+    def read(label, n, loss, model):
+        rows, witness = _routes_reading(model, imgs, gt, vis)
+        log(f"phase 14 {label}: step {n}, loss {loss:.3g}; routes "
+            f"(PCK@0.2, mean keypoint distance in crop px, 4 to a heatmap "
+            f"px): {json.dumps(rows)}; joints some route moves > 4 px: "
+            f"{json.dumps(witness)}")
+        readings[label] = dict(steps=n, loss=loss, routes=rows,
+                               witness=witness)
+        return rows
+
+    for n, loss, model in _fit_r50_k3(batch, 3e-3, 1e-3):
+        pass
+    read("recipe (Adam 3e-3 to loss < 1e-3, printed)", n, loss, model)
+    del model
+    torch.cuda.empty_cache()
+
+    crossed = False
+    for n, loss, model in _fit_r50_k3(batch, 1e-3, 1e-4):
+        if not crossed and loss < 1e-3:
+            crossed = True
+            read("Adam 1e-3 at its loss < 1e-3 crossing (printed)", n, loss,
+                 model)
+            model.train()
+    log(f"phase 14: R50 K=3 on 8 crops, Adam 1e-3: {loss:.3g} after {n} "
+        f"steps (< 1e-4)")
+    if loss >= 1e-4:
+        raise AssertionError("phase 14: the R50 did not fit its 8 crops")
+    rows = read("Adam 1e-3 to loss < 1e-4 (gated)", n, loss, model)
+    if rows["bf16"]["pck"] < 1.0:
+        raise AssertionError("phase 14: the bf16 forward does not localize")
+    for name in ("bf16_kernels_K1_K4", "cuda_serving_engine_K5_K6",
+                 "int8_engine", "ptq"):
+        r = rows[name]
+        if r["pck_delta"] > 0.005 or r["mean_px_vs_bf16"] > 1.0:
+            raise AssertionError(f"phase 14: route {name} not within 0.005 "
+                                 f"PCK and 1 px of bf16")
+    results["dark_decode"]["peaking_model_routes"] = readings
+    del model
+    torch.cuda.empty_cache()
+    log(f"phase 14 seconds: {time.perf_counter() - t_phase:.1f}")
+
+
+def hrnet_main(out_path: Path) -> int:
+    """Phases 12, 13, 13b and 14 on their own (a child process main()
+    starts, as phase 11's): their rows of the kernels JSON go to
+    `out_path`."""
+    from tpupose_torch.ops import _build
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    results = {"dark_decode": {}, "affine_warp": {}}
+    shutil.rmtree(HR_DIR, ignore_errors=True)
+    try:
+        hrnet_train_phase(results)
+        hrnet_eval_phase(results)
+        int8_metric_phase(results)
+    finally:
+        shutil.rmtree(HR_DIR, ignore_errors=True)
+    out_path.write_text(json.dumps(results))
+    return 0
 
 
 def main() -> int:
@@ -1645,7 +2349,6 @@ def main() -> int:
     serve_check(pred8, crops, "int8")
 
     # -- phase 7: the training slice -------------------------------------------
-    from tpupose_torch.configs import default_config
     from tpupose_torch.configs.default import OptimizerConfig
     from tpupose_torch.engine.optimizers import make_optimizer
     from tpupose_torch.engine.train_state import (TrainState,
@@ -1658,14 +2361,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     out_dir = ROOT / "build" / "chip_smoke_train"
     shutil.rmtree(out_dir, ignore_errors=True)
-    cfg = default_config()
-    cfg.merge_dict(SIMPLE_BASELINE)
-    cfg.merge_dotted({"data.device_affine": "true",
-                      # depth cut: 3 of 140 epochs (the multistep schedule's
-                      # first epochs do not depend on the total)
-                      "train.epochs": "3",
-                      "train.output_dir": str(out_dir)})
-    cfg.freeze()
+    cfg = _cfg(SIMPLE_BASELINE, {
+        "data.device_affine": "true",
+        # depth cut: 3 of 140 epochs (the multistep schedule's first
+        # epochs do not depend on the total)
+        "train.epochs": "3", "train.output_dir": str(out_dir)})
     tr = Trainer(cfg, device="cuda")
     step_losses = []
     step_fn = tr.train_step
@@ -1804,10 +2504,7 @@ def main() -> int:
     # -- phase 4c (run after phase 7, as every new phase): cli.serve's R50 --
     from tpupose_torch.cli.serve import build_predictor
 
-    cfg = default_config()
-    cfg.merge_dict(SIMPLE_BASELINE)
-    cfg.freeze()
-    cli_r50 = build_predictor(cfg, "", device="cuda")
+    cli_r50 = build_predictor(_cfg(SIMPLE_BASELINE, {}), "", device="cuda")
     for wfn in wrappers.values():
         wfn.launches = 0
     c1, s1 = cli_r50(crops[:1])
@@ -1885,10 +2582,7 @@ def main() -> int:
         "host; k8 = the port's route, plain = plain attention, sdpa = "
         "F.scaled_dot_product_attention, timed only): " + json.dumps(rates))
     serve_check(vpred, crops, "ViTPose-S")
-    cfg = default_config()
-    cfg.merge_dict(VITPOSE_S)
-    cfg.freeze()
-    cli_pred = build_predictor(cfg, "", device="cuda")
+    cli_pred = build_predictor(_cfg(VITPOSE_S, {}), "", device="cuda")
     flash_attention.launches = 0
     c1, s1 = cli_pred(crops[:1])
     log(f"cli.serve.build_predictor (vitpose_s config, flax init, bf16 "
@@ -1914,6 +2608,17 @@ def main() -> int:
         results[kernel].update(row)
     phase11.unlink()
     shutil.rmtree(out_dir, ignore_errors=True)
+
+    # -- phases 12, 13, 13b, 14: HRNet-W32 training, HRNet-W48 384x288
+    # evaluation and int8, the routes' metrics on a model that localizes;
+    # in a child process, as phase 11 --------------------------------------
+    phase12 = ROOT / "build" / "chip_smoke_phase12.json"
+    subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                    "--phase12", str(phase12)], check=True, timeout=900)
+    for kernel, row in json.loads(phase12.read_text()).items():
+        for k, v in row.items():
+            results[kernel][k] = v
+    phase12.unlink()
 
     # -- phase 9: device times, measured last so that no profiler session
     # precedes the timing of any other phase -----------------------------------
@@ -2031,4 +2736,6 @@ def phase11_main(ckpt_dir: Path, out_path: Path) -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--phase11":
         sys.exit(phase11_main(Path(sys.argv[2]), Path(sys.argv[3])))
+    if len(sys.argv) == 3 and sys.argv[1] == "--phase12":
+        sys.exit(hrnet_main(Path(sys.argv[2])))
     sys.exit(main())

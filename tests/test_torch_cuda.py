@@ -812,3 +812,96 @@ def test_evaluate_kernel_route_matches_the_plain_route(card, tmp_path):
     assert tr._evaluator.fast_weights is None
     for k in ("pck", "mAP", "mAP50", "mAP75"):
         assert np.isfinite(got[k]) and abs(got[k] - want[k]) <= 0.005, k
+
+
+# -- HRNet and the int8 engine without hand kernels (no TPU kernel in JAX
+# either: cuDNN convolutions and torch._int_mm products) ----------------------
+
+@pytest.mark.parametrize("blur,sigma,hw", [(11, 2.0, (64, 48)),
+                                           (17, 3.0, (96, 72))],
+                         ids=["w32_64x48", "w48_96x72"])
+def test_dark_decode_kernel_at_hrnet_shapes(gpu, blur, sigma, hw):
+    """K4 at the two HRNet heatmap sizes with their blur (W48: 17 taps,
+    sigma 3) on Gaussian maps of that sigma: coordinates within 1e-3 px,
+    scores equal."""
+    from tpupose_torch.ops.cuda_decode import (dark_decode,
+                                               dark_decode_reference)
+
+    g = torch.Generator().manual_seed(3)
+    B, K = 64, 17
+    mu = torch.rand((B, K, 2), generator=g) * torch.tensor(
+        [hw[1] - 4.0, hw[0] - 4.0]) + 2.0
+    ys = torch.arange(hw[0], dtype=torch.float32)[:, None]
+    xs = torch.arange(hw[1], dtype=torch.float32)[None, :]
+    hm = torch.exp(-((xs - mu[..., 0, None, None]) ** 2
+                     + (ys - mu[..., 1, None, None]) ** 2)
+                   / (2 * sigma ** 2)).cuda()
+    c, s = dark_decode(hm, blur, sigma)
+    rc, rs = dark_decode_reference(hm, blur, sigma)
+    assert torch.equal(s, rs)
+    assert (c - rc).abs().max().item() <= 1e-3
+
+
+def test_hrnet_forward_on_the_card_matches_the_cpu(gpu):
+    """HRNet-W32 at 256x192 in float32 (TF32 off): the card's heatmaps
+    within 1e-4 of the CPU's range (cuDNN and the CPU sum in other
+    orders)."""
+    from tpupose_torch.models.backbones.hrnet import HRNetPose
+
+    torch.backends.cudnn.allow_tf32 = False
+    m = HRNetPose("hrnet_w32", 17, dtype=torch.float32, device="cpu",
+                  generator=torch.Generator().manual_seed(4))
+    x = torch.randn((2, 256, 192, 3), generator=torch.Generator()
+                    .manual_seed(5))
+    with torch.no_grad():
+        want = m(x)
+        got = m.cuda()(x.cuda()).cpu()
+    assert _rel(got, want) < 1e-4
+
+
+def test_int8_engine_on_the_card_equals_the_cpu(gpu):
+    """The Int8Engine of HRNet-W48 at 384x288 built on the card, and the
+    same engine (nodes, int8 weights, scales) run on the CPU: equal in
+    every element (exact int32 products, the same float32 epilogues)."""
+    from tpupose_torch.models.backbones.hrnet import HRNetPose
+    from tpupose_torch.ops.int8_engine import Int8Engine
+
+    m = HRNetPose("hrnet_w48", 17, dtype=torch.float32, device="cuda",
+                  generator=torch.Generator().manual_seed(6))
+    crops = torch.randint(0, 256, (4, 384, 288, 3), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(7))
+    eng = Int8Engine.build(m, calib=crops, device="cuda")
+    cpu = Int8Engine(eng._nodes, {k: tuple(t.cpu() for t in v)
+                                  for k, v in eng._qw.items()},
+                     eng._scales, eng._pad, eng._in_pad, device="cpu")
+    got = eng(crops[:2])
+    assert got.is_cuda and got.shape == (2, 96, 72, 17)
+    assert torch.equal(got.cpu(), cpu(crops[:2]))
+
+
+def test_ptq_on_the_card_under_autocast(gpu):
+    """The PTQ intercept on an R50 with float32 masters under bf16
+    autocast: int8 layers give the autocast dtype, the float32 head stays
+    float32, and the heatmaps stay within the int8 bounds of
+    tests/test_pallas_engine.py (max rel 0.15, mean rel 0.02) of the
+    model's own forward; every forward is restored."""
+    from tpupose_torch.engine.predictor import HeatmapPredictor
+    from tpupose_torch.models.simple_baseline import SimpleBaseline
+    from tpupose_torch.ops.preprocess import normalize_images
+    from tpupose_torch.ops.quant import quantized_apply
+
+    m = SimpleBaseline("resnet50", 17, dtype=torch.bfloat16, device="cuda",
+                       param_dtype=torch.float32,
+                       generator=torch.Generator().manual_seed(8))
+    crops = torch.randint(0, 256, (8, 256, 192, 3), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(9)).cuda()
+    scales = HeatmapPredictor.calibrate_int8(m, crops)
+    x = normalize_images(crops).float()
+    with torch.no_grad():
+        want = m(x).float()
+    got = quantized_apply(m, scales, x)
+    assert got.dtype == torch.float32
+    d = (got - want).abs()
+    den = want.abs().max()
+    assert (d.max() / den).item() < 0.15 and (d.mean() / den).item() < 0.02
+    assert not any("forward" in vars(mod) for mod in m.modules())

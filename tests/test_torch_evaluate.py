@@ -392,9 +392,10 @@ def test_run_metrics_in_the_epoch_loop(tmp_path):
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("eval.int8", True, "item 6"), ("eval.int8_engine", True, "item 6"),
     ("eval.det_boxes", "dets.json", "item 11")])
 def test_unported_eval_options_raise(tmp_path, key, value, item):
+    """eval.int8 and eval.int8_engine are ported (held against JAX in
+    tests/test_torch_int8_eval.py); detection-box evaluation raises."""
     from tpupose_torch.engine.trainer import Trainer
 
     with pytest.raises(ValueError, match=item):

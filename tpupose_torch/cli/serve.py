@@ -8,7 +8,10 @@ model over HTTP with dynamic micro-batching (engine/server.py).
 `--device` defaults to cuda (raises where CUDA is absent); `--device cpu`
 serves on the CPU. Without `--ckpt` the model keeps its seeded random
 init. `eval.flip_test`, `eval.decode` and `eval.int8_engine` apply as in
-eval; the int8 engine serves SimpleBaseline-R50 only.
+eval. The int8 engine serves the SimpleBaseline and HRNet families, the
+engine chosen by ops/int8_engine.build_int8_engine (SimpleBaseline-R50
+on the hand-written int8 kernels, every other one on Int8Engine), as
+Trainer.evaluate chooses it.
 """
 
 from __future__ import annotations
@@ -33,9 +36,6 @@ def build_predictor(cfg, weights: str = "", device="cuda"):
     if name not in HEATMAP_FAMILIES:
         raise SystemExit(f"serve supports the top-down heatmap families "
                          f"{HEATMAP_FAMILIES}, got model.name={name!r}")
-    if name == "hrnet":
-        raise ValueError("model 'hrnet' is not ported to tpupose_torch yet "
-                         "(ROADMAP Queue A item 7)")
     builder = Builder(cfg, device)
     model = builder.model()
     if weights:
@@ -52,13 +52,16 @@ def build_predictor(cfg, weights: str = "", device="cuda"):
     H, W = cfg.data.image_size
     int8_engine = None
     if cfg.eval.int8_engine:
-        from tpupose_torch.ops.cuda_engine import CudaServingEngine
+        from tpupose_torch.ops.int8_engine import build_int8_engine
 
-        if name != "simple_baseline":
-            raise SystemExit("eval.int8_engine serves the SimpleBaseline "
-                             f"family only (model.name={name!r})")
+        bb = cfg.model.backbone
+        if not (bb.startswith("resnet") or bb.startswith("hrnet")):
+            raise SystemExit("eval.int8_engine serves the SimpleBaseline/"
+                             f"HRNet families only (backbone={bb!r})")
         calib = np.random.randint(0, 256, (8, H, W, 3), np.uint8)
-        int8_engine = CudaServingEngine.build(model, calib, device=device)
+        int8_engine = build_int8_engine(
+            model, calib, decode_method=cfg.eval.decode,
+            blur_kernel=cfg.eval.blur_kernel, device=device)
         printT("int8 engine built (synthetic calibration; pass real "
                "crops through eval for production scales)")
 

@@ -1,7 +1,7 @@
 """Builder: config -> objects, for the heatmap family (counterpart of
 tpupose/engine/builder.py).
 
-Ported: `model()` (simple_baseline, vitpose), `loss()` (joints_mse,
+Ported: `model()` (simple_baseline, hrnet, vitpose), `loss()` (joints_mse,
 joints_mse_weighted), `lr_scheduler()`, `optimizer()` (head/base lr
 split, frozen backbone, global-norm clipping), `dataset()` (synthetic,
 coco) and `dataloader()`. Any other name raises ValueError naming the ROADMAP
@@ -21,11 +21,11 @@ from tpupose_torch.engine.schedulers import make_schedule
 def is_backbone_path(name: str) -> bool:
     """Parameter-name predicate for the two-group lr split and freezing:
     the backbone's parameters are `backbone.*` in the port's models (the
-    JAX package's `ResNet_0/...`)."""
+    JAX package's `ResNet_0/...`, `HRNet_0/...`, `DinoViT_0/...`)."""
     return name.startswith("backbone.")
 
 
-_MODEL_ITEMS = {"hrnet": "Queue A item 7", "dinov3_pose": "Queue A item 8",
+_MODEL_ITEMS = {"dinov3_pose": "Queue A item 8",
                 "simcc": "Queue A item 9", "deeppose": "Queue A item 9",
                 "bottom_up": "Queue A item 9", "fskd": "Queue A item 10",
                 "fcmae": "Queue A item 10"}
@@ -43,41 +43,49 @@ class Builder:
 
     # -- model -----------------------------------------------------------------
     def model(self):
-        """SimpleBaseline or ViTPose with flax's default init drawn from a
-        generator seeded by train.seed, float32 master weights, and bf16
-        autocast when train.mixed_precision (else float32 throughout).
-        train.remat checkpoints ViTPose's blocks; SimpleBaseline's remat
-        is not ported and raises."""
-        from tpupose_torch.models.simple_baseline import (SimpleBaseline,
-                                                          init_like_flax)
-        from tpupose_torch.models.vitpose import (ViTPose,
-                                                  init_vitpose_like_flax)
+        """SimpleBaseline, HRNetPose or ViTPose with flax's default init
+        drawn from a generator seeded by train.seed, float32 master
+        weights, and bf16 autocast when train.mixed_precision (else
+        float32 throughout). train.remat checkpoints the blocks
+        (models/remat.py; ViTPose's through its own DinoViT)."""
+        from tpupose_torch.models import MODELS
+        from tpupose_torch.models.simple_baseline import init_like_flax
 
         m = self.cfg.model
-        if m.name not in ("simple_baseline", "vitpose"):
+        if m.name not in MODELS:
             raise _unported("model", m.name, _MODEL_ITEMS.get(
-                m.name, "Queue A items 7-10"))
+                m.name, "Queue A items 8-10"))
         if m.pretrained:
             raise _unported("model.pretrained", m.pretrained,
                             "Queue A item 12")
         remat = self.cfg.train.remat
-        if remat and m.name != "vitpose":
-            raise _unported("train.remat with model", m.name,
-                            "Queue A item 5")
         dtype = (torch.bfloat16 if self.cfg.train.mixed_precision
                  else torch.float32)
         g = torch.Generator().manual_seed(self.cfg.train.seed)
         if m.name == "vitpose":
+            from tpupose_torch.models.vitpose import (ViTPose,
+                                                      init_vitpose_like_flax)
+
             model = ViTPose(m.backbone, m.num_keypoints, m.decoder,
                             tuple(m.deconv_channels)[:2],
                             freeze_backbone=m.freeze_backbone, dtype=dtype,
                             device="cpu", param_dtype=torch.float32,
                             remat=remat)
             init_vitpose_like_flax(model, g)
+        elif m.name == "hrnet":
+            from tpupose_torch.models.backbones.hrnet import HRNetPose
+
+            model = HRNetPose(m.backbone, m.num_keypoints, dtype=dtype,
+                              device="cpu", param_dtype=torch.float32,
+                              remat=remat)
+            init_like_flax(model, g)
         else:
+            from tpupose_torch.models.simple_baseline import SimpleBaseline
+
             model = SimpleBaseline(m.backbone, m.num_keypoints,
                                    tuple(m.deconv_channels), dtype=dtype,
-                                   device="cpu", param_dtype=torch.float32)
+                                   device="cpu", param_dtype=torch.float32,
+                                   remat=remat)
             init_like_flax(model, g)
         return model.to(self.device)
 

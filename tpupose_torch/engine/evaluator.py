@@ -15,10 +15,14 @@ R50 too with `fast_r50=False`). A ViTPose takes its own forward, in
 which each block's attention is the flash-attention kernel K8 on the
 card (bf16 q/k/v).
 
-With `int8_engine` (an ops/cuda_engine.CudaServingEngine built from the
-model) the forward is the engine's uint8 -> heatmaps chain instead, the
-normalize being folded into its stem; the flipped forward flips the raw
-uint8 pixels. Merge, decode and back-projection are unchanged.
+With `int8_engine` (an ops/cuda_engine.CudaServingEngine built from a
+SimpleBaseline-R50, or an ops/int8_engine.Int8Engine built from any
+SimpleBaseline or HRNetPose) the forward is the engine's uint8 ->
+heatmaps chain instead, the normalize being folded into its stem; the
+flipped forward flips the raw uint8 pixels. With `quant_scales` (from
+ops/quant.calibrate) the model's own forward runs with its calibrated
+layers in int8 (ops/quant.quantized_apply). Merge, decode and
+back-projection are unchanged.
 
 `run` drives the metric library (tpupose_torch/metrics) over a loader:
 coordinate metrics get each batch, OKS-AP gets the crops regrouped by
@@ -67,23 +71,30 @@ class TopDownEvaluator:
                  flip_test: bool = True, flip_pairs=None,
                  blur_kernel: int = 11, sigma: float = 2.0,
                  udp: bool = False, device="cuda", int8_engine=None,
-                 family: str = "heatmap", fast_r50: bool = True):
-        """model: a tpupose_torch heatmap model, SimpleBaseline or
-        ViTPose (or any module mapping normalized NHWC images to (B, Hh,
-        Wh, K) heatmaps), moved to `device` and put in eval mode. udp:
-        unit-length coordinate convention (back-projection on the
+                 family: str = "heatmap", fast_r50: bool = True,
+                 quant_scales=None):
+        """model: a tpupose_torch heatmap model, SimpleBaseline, HRNetPose
+        or ViTPose (or any module mapping normalized NHWC images to (B,
+        Hh, Wh, K) heatmaps), moved to `device` and put in eval mode.
+        udp: unit-length coordinate convention (back-projection on the
         (N-1)-interval grid, flip-test mirror without the 1-px shift).
-        int8_engine: a CudaServingEngine built from this model, which
-        replaces normalize + forward (SimpleBaseline-R50 only).
-        fast_r50=False: the model's own forward for the R50 too (the
-        yardstick of the kernel route)."""
+        int8_engine: an engine built from this model, which replaces
+        normalize + forward: an Int8Engine (SimpleBaseline or HRNet) or a
+        CudaServingEngine (SimpleBaseline-R50 only). quant_scales:
+        {module name: amax} from ops/quant.calibrate, the forward with
+        those layers in int8. fast_r50=False: the model's own forward for
+        the R50 too (the yardstick of the kernel route)."""
+        from tpupose_torch.ops.int8_engine import Int8Engine
+
         if family != "heatmap":
             raise ValueError(f"the port (and its int8_engine) serves the "
                              f"heatmap family only, got family={family!r}")
-        if int8_engine is not None and \
+        if int8_engine is not None and not isinstance(
+                int8_engine, Int8Engine) and \
                 getattr(model, "backbone_name", None) != "resnet50":
-            raise ValueError("int8_engine serves SimpleBaseline-R50 only, "
-                             f"not {type(model).__name__} with backbone "
+            raise ValueError("CudaServingEngine serves SimpleBaseline-R50 "
+                             f"only, not {type(model).__name__} with "
+                             f"backbone "
                              f"{getattr(model, 'backbone_name', None)!r}")
         self.device = resolve_device(device)
         self.heatmap_size = tuple(heatmap_size)
@@ -95,6 +106,7 @@ class TopDownEvaluator:
         self.sigma = sigma
         self.udp = udp
         self.int8_engine = int8_engine
+        self.quant_scales = dict(quant_scales) if quant_scales else None
         self.fast_r50 = fast_r50
         self.refresh(model)
 
@@ -109,6 +121,7 @@ class TopDownEvaluator:
         self.model = model.to(self.device).eval()
         self.fast_weights = (fold_fast_r50(self.model)
                              if self.fast_r50 and self.int8_engine is None
+                             and self.quant_scales is None
                              and is_fast_r50(self.model) else None)
         self.dtype = next(self.model.parameters()).dtype
         self.fast_dtype = compute_dtype(self.model)
@@ -117,7 +130,11 @@ class TopDownEvaluator:
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Normalized NHWC images -> heatmaps (B, Hh, Wh, K)."""
         from tpupose_torch.ops.cuda_stem import fast_r50_stem_apply
+        from tpupose_torch.ops.quant import quantized_apply
 
+        if self.quant_scales is not None:
+            return quantized_apply(self.model, self.quant_scales,
+                                   x.to(self.dtype))
         if (self.fast_weights is not None
                 and tuple(x.shape[1:3]) == FAST_R50_INPUT_HW):
             return fast_r50_stem_apply(self.model, x.to(self.fast_dtype),

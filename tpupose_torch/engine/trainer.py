@@ -1,5 +1,5 @@
-"""Trainer: the epoch loop for the heatmap family, SimpleBaseline and
-ViTPose (counterpart of tpupose/engine/trainer.py).
+"""Trainer: the epoch loop for the heatmap family, SimpleBaseline, HRNet
+and ViTPose (counterpart of tpupose/engine/trainer.py).
 
 Ported: construction (builder, datasets and loaders, model, optimizer
 with per-group schedules, EMA, the train and eval steps, log file,
@@ -8,11 +8,14 @@ tensorboard scalars, checkpoints), device prefetch of prepared batches,
 steps), loss-only `validate` (pad-mask weighting, EMA weights), metric
 `evaluate` (flip test + DARK + back-projection + the metrics of
 `eval.metrics` over the valid set, `eval.dump_results`; in the epoch
-loop with `eval.run_metrics`), `train` with the SIGTERM/SIGINT
-checkpoint guard, `save_checkpoint` and `load_checkpoint`. Not ported
-yet (ROADMAP Queue A): the other families, distillation, pretrained
-weights, the device mesh, int8 evaluation (`eval.int8`,
-`eval.int8_engine`) and detection-box evaluation (`eval.det_boxes`).
+loop with `eval.run_metrics`; int8 evaluation with `eval.int8`, the PTQ
+intercept, and `eval.int8_engine`, cli.serve's int8 engine (the R50's
+CudaServingEngine, else Int8Engine), both calibrated on the first
+validation batch against the current eval weights at every
+call), `train` with the SIGTERM/SIGINT checkpoint guard,
+`save_checkpoint` and `load_checkpoint`. Not ported yet (ROADMAP Queue
+A): the other families, distillation, pretrained weights, the device
+mesh and detection-box evaluation (`eval.det_boxes`).
 
 Runs on `device` (default "cuda"; raises where CUDA is absent). On the
 card a ViTPose step runs the flash-attention kernels K8 (forward) and K8b
@@ -180,11 +183,6 @@ class Trainer:
     def _check_eval_options(self):
         """The evaluation options that are not ported yet raise."""
         e = self.cfg.eval
-        if e.int8 or e.int8_engine:
-            raise ValueError("int8 evaluation (eval.int8, eval.int8_engine) "
-                             "is not ported to tpupose_torch yet (ROADMAP "
-                             "Queue A item 6: the XLA-style Int8Engine and "
-                             "ops/quant)")
         if e.det_boxes:
             raise ValueError("detection-box evaluation (eval.det_boxes) is "
                              "not ported to tpupose_torch yet (ROADMAP "
@@ -209,11 +207,18 @@ class Trainer:
     def _get_evaluator(self):
         """Build the evaluator once; at every call hand it the current eval
         weights (the EMA where tracked), from which it re-folds the kernel
-        route's weights."""
+        route's weights.
+
+        With eval.int8 or eval.int8_engine the evaluator is rebuilt at
+        every call, as in JAX: the activation scales are calibrated on
+        the first validation batch against the current weights, so the
+        scales of an earlier evaluation would clip later activations."""
         from tpupose_torch.engine.evaluator import TopDownEvaluator
 
         model = self.state.for_eval()
-        if self._evaluator is None:
+        e = self.cfg.eval
+        if self._evaluator is None or e.int8 or e.int8_engine:
+            quant_scales, engine = self._int8_routes(model)
             # flip pairs come from the dataset (COCO defines its own);
             # datasets without a joint-order convention flip unpaired
             pairs = getattr(self.valid_ds, "flip_pairs", None)
@@ -225,10 +230,37 @@ class Trainer:
                 flip_test=self.cfg.eval.flip_test, flip_pairs=pairs,
                 blur_kernel=self.cfg.eval.blur_kernel,
                 sigma=self.cfg.data.sigma, udp=self.cfg.data.udp,
-                device=self.device)
+                device=self.device, int8_engine=engine,
+                quant_scales=quant_scales)
         else:
             self._evaluator.refresh(model)
         return self._evaluator
+
+    def _int8_routes(self, model):
+        """(quant_scales, engine) of eval.int8 and eval.int8_engine, each
+        calibrated on the first validation batch against `model` (None
+        where the option is off); the engine is cli.serve's
+        (ops/int8_engine.build_int8_engine)."""
+        e = self.cfg.eval
+        if not (e.int8 or e.int8_engine):
+            return None, None
+        try:
+            first = np.asarray(next(iter(self.valid_loader))["images"])
+        except StopIteration:
+            raise ValueError("eval.int8/int8_engine need at least one "
+                             "validation batch for activation calibration")
+        quant_scales = engine = None
+        if e.int8:
+            from tpupose_torch.engine.predictor import HeatmapPredictor
+
+            quant_scales = HeatmapPredictor.calibrate_int8(model, first)
+        if e.int8_engine:
+            from tpupose_torch.ops.int8_engine import build_int8_engine
+
+            engine = build_int8_engine(model, first, decode_method=e.decode,
+                                       blur_kernel=e.blur_kernel,
+                                       device=self.device)
+        return quant_scales, engine
 
     def _eval_batches(self):
         """The valid loader with every batch carrying GT joints in source

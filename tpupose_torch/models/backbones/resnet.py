@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpupose_torch.models.remat import batch_stats_frozen, block_call
+
 
 class BatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d with flax's train-mode statistics update.
@@ -34,7 +36,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     n/(n-1) times larger. The batch statistics come out of the same
     F.batch_norm call (momentum 1 into zeroed buffers gives the batch mean
     and the unbiased variance), so no extra pass over the activations is
-    made. Eval mode is nn.BatchNorm2d's."""
+    made. Eval mode is nn.BatchNorm2d's. In the recomputation of a
+    checkpointed block (models/remat.py) the running statistics are left
+    as the first forward set them."""
 
     def forward(self, x):
         if not self.training:
@@ -44,6 +48,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         var = torch.zeros_like(self.running_var)
         y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
                          self.eps)
+        if batch_stats_frozen():
+            return y
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
@@ -128,12 +134,15 @@ class StemPool(nn.Module):
 
 
 class ResNet(nn.Module):
-    """ResNet feature extractor: NCHW in, the C5 map out."""
+    """ResNet feature extractor: NCHW in, the C5 map out. `remat`
+    checkpoints each residual block in training (models/remat.py)."""
 
-    def __init__(self, block_cls, stage_sizes: Sequence[int]):
+    def __init__(self, block_cls, stage_sizes: Sequence[int],
+                 remat: bool = False):
         super().__init__()
         self.block_cls = block_cls
         self.stage_sizes = tuple(stage_sizes)
+        self.remat = remat
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = _bn(64)
         self.maxpool = StemPool()
@@ -149,9 +158,9 @@ class ResNet(nn.Module):
         self.out_channels = inplanes
 
     @classmethod
-    def from_name(cls, name: str) -> "ResNet":
+    def from_name(cls, name: str, remat: bool = False) -> "ResNet":
         block, sizes = resnet_spec(name)
-        return cls(block, sizes)
+        return cls(block, sizes, remat)
 
     def stem(self, x):
         return self.maxpool(torch.relu(self.bn1(self.conv1(x))))
@@ -159,5 +168,6 @@ class ResNet(nn.Module):
     def forward(self, x):
         x = self.stem(x)
         for i in range(1, 5):
-            x = getattr(self, f"layer{i}")(x)
+            for blk in getattr(self, f"layer{i}"):
+                x = block_call(blk, x, self.remat)
         return x

@@ -26,20 +26,22 @@ class SimpleBaseline(nn.Module):
     `dtype=bf16` and float32 params does. Either way the head's final
     1x1 conv runs in float32. Weights come from the module initializers
     under `generator` (seeded when given), from `init_like_flax`, or from
-    a state dict (see tpupose_torch.utils.convert)."""
+    a state dict (see tpupose_torch.utils.convert). `remat` checkpoints
+    each residual block in training (models/remat.py)."""
 
     def __init__(self, backbone: str = "resnet50", num_keypoints: int = 17,
                  deconv_channels: Sequence[int] = (256, 256, 256),
                  dtype: torch.dtype = torch.bfloat16, device="cuda",
                  generator: torch.Generator | None = None,
-                 param_dtype: torch.dtype | None = None):
+                 param_dtype: torch.dtype | None = None,
+                 remat: bool = False):
         super().__init__()
         dev = resolve_device(device)
         self.backbone_name = backbone
         self.num_keypoints = num_keypoints
         self.compute_dtype = dtype
         self.param_dtype = param_dtype or dtype
-        self.backbone = ResNet.from_name(backbone)
+        self.backbone = ResNet.from_name(backbone, remat)
         self.head = HeatmapHead(self.backbone.out_channels, num_keypoints,
                                 deconv_channels)
         if generator is not None:
