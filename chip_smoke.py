@@ -1880,6 +1880,356 @@ def hrnet_main(out_path: Path) -> int:
     return 0
 
 
+# tpupose/configs/method/dinov3_vitpose.yaml (graded config 5's detector,
+# BASELINE.json:11: DINOv3Pose on a ViT-B/16 at 640x640, 12 heads of 64,
+# neck (192, 384, 768), 4 keypoints, 7 classes), written out as
+# SIMPLE_BASELINE is; stage 2 is SIMPLE_BASELINE
+DINOV3_VITPOSE = {
+    "model": {"name": "dinov3_pose", "backbone": "dinov3_vit_base",
+              "num_keypoints": 4, "num_classes": 7,
+              "neck_channels": [192, 384, 768], "strides": [8, 16, 32],
+              "freeze_backbone": True},
+    "data": {"name": "synthetic_yolo", "image_size": [640, 640],
+             "max_instances": 32},
+    "train": {"batch_size": 16, "epochs": 100, "warmup_epochs": 3},
+    "loss": {"name": "pose_compute", "kpt_loss_type": "oks",
+             "cls_weight": 1.0, "kpt_weight": 10.0, "vis_weight": 5.0},
+    "optimizer": {"name": "adamw", "lr": 1.0e-3, "head_lr": 1.0e-2},
+    "lr_scheduler": {"name": "cosine"},
+}
+VIDEO_DIR = ROOT / "build" / "chip_smoke_video"
+# random weights score almost nothing above the configs' 0.25 (the class
+# convs start at the prior probability 0.01): this threshold keeps
+# detections in every chunk
+VIDEO_CONF = 0.005
+VIDEO_FRAMES = 64
+
+
+def write_video_frames(root: Path, n: int = VIDEO_FRAMES, seed: int = 0):
+    """n seeded 480x640 JPEG frames: a noise background and 1-3 stick
+    figures (head, trunk, limbs) that drift from frame to frame."""
+    from PIL import Image, ImageDraw
+
+    rng = np.random.RandomState(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    figs = [(rng.uniform(80, 560), rng.uniform(120, 360),
+             rng.uniform(0.6, 1.4), rng.uniform(-4, 4), rng.uniform(-2, 2))
+            for _ in range(3)]
+    for i in range(n):
+        img = Image.fromarray(rng.randint(20, 70, (480, 640, 3), np.uint8))
+        d = ImageDraw.Draw(img)
+        for j, (x, y, s, vx, vy) in enumerate(figs[:1 + i % 3]):
+            x, y = x + vx * i, y + vy * i
+            col = tuple(int(c) for c in (200, 120 + 40 * j, 60 + 60 * j))
+            d.ellipse([x - 14 * s, y - 90 * s, x + 14 * s, y - 62 * s],
+                      fill=col)
+            for (a, b, c, e) in ((0, -62, 0, 10), (0, -50, -30, -10),
+                                 (0, -50, 30, -10), (0, 10, -20, 70),
+                                 (0, 10, 20, 70)):
+                d.line([x + a * s, y + b * s, x + c * s, y + e * s],
+                       fill=col, width=max(2, int(6 * s)))
+        img.save(root / f"frame_{i}.jpg", quality=90)
+
+
+def _video_counts():
+    """The launch counters of every kernel, by kernels-JSON row name."""
+    from tpupose_torch.ops.cuda_attention import (flash_attention,
+                                                  flash_attention_backward)
+    from tpupose_torch.ops.cuda_bridge import bridge
+    from tpupose_torch.ops.cuda_decode import dark_decode
+    from tpupose_torch.ops.cuda_head import run_deconv
+    from tpupose_torch.ops.cuda_layer1 import layer1
+    from tpupose_torch.ops.cuda_stages import run_chunk
+    from tpupose_torch.ops.cuda_stem import stem_pool
+    from tpupose_torch.ops.cuda_warp import affine_warp, crops_from_frames
+
+    return {"flash_attention": flash_attention,
+            "affine_warp": crops_from_frames, "affine_warp_full": affine_warp,
+            "stem_pool": stem_pool, "layer1": layer1, "bridge": bridge,
+            "dark_decode": dark_decode, "run_chunk": run_chunk,
+            "run_deconv": run_deconv,
+            "flash_attention_bwd": flash_attention_backward}
+
+
+def _host_ms(fn, n=10):
+    """Median host milliseconds of fn() ending in a synchronize, after
+    two warm-up calls."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _device_kernels(fn):
+    """Device kernels (and copies) one call of fn() puts on the card, as
+    torch.profiler records them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False))
+
+
+def video_phase(results, card: str):
+    """Phase 15: the multi-person video pipeline (graded config 5):
+    DINOv3Pose ViT-B/16 at 640x640 through `Builder` (flax's init from
+    the seed), its decoded pre-NMS output on the K8 route against plain
+    attention, then `cli.video.main` twice on a seeded folder of frames:
+    single-stage with appearance embeddings and two-stage with the
+    SimpleBaseline-R50 256x192 config as `pose_cfg`. Each
+    run must write a tracks.jsonl line per frame, every frame with tracks,
+    and launch per chunk exactly 12 K8; the two-stage run also 1 K7, 1 K1,
+    3 K2, 1 K3 and 1 K4, the single-stage run none of those; neither any
+    K5, K6 or K8b. Then the detector forward at B = 8 on the K8, SDPA and
+    plain routes, NMS and the stage-2 step at D = 16 are timed."""
+    from PIL import Image
+
+    from tpupose_torch.cli import video as cli_video
+    from tpupose_torch.engine.builder import Builder
+    from tpupose_torch.engine.predictor import YoloPosePredictor
+    from tpupose_torch.engine.two_stage import (TwoStagePosePredictor,
+                                                person_crops)
+    from tpupose_torch.models.backbones import vit as vit_mod
+    from tpupose_torch.models.backbones.vit import LayerScale
+    from tpupose_torch.ops.affine import batched_affine_warp
+    from tpupose_torch.ops.attention import fused_attention
+    from tpupose_torch.ops.preprocess import normalize_images
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(VIDEO_DIR, ignore_errors=True)
+    frames_dir = VIDEO_DIR / "frames"
+    write_video_frames(frames_dir)
+    det_json, pose_json = VIDEO_DIR / "dinov3_vitpose.json", \
+        VIDEO_DIR / "simple_baseline.json"
+    det_json.write_text(json.dumps(DINOV3_VITPOSE))
+    pose_json.write_text(json.dumps(SIMPLE_BASELINE))
+    cfg = _cfg(DINOV3_VITPOSE, {"eval.conf_threshold": VIDEO_CONF})
+    VB = cfg.eval.video_batch
+    chunks = -(-VIDEO_FRAMES // VB)
+    counters = _video_counts()
+
+    # -- the detector on the K8 route against plain attention --------------
+    model = Builder(cfg, "cuda").model()
+    frames = torch.from_numpy(np.stack([
+        np.asarray(Image.open(frames_dir / f"frame_{i}.jpg").convert("RGB")
+                   .resize((640, 640)), np.uint8) for i in range(VB)])).cuda()
+    x = normalize_images(frames, scale_only=True)
+    readings = {}
+    with torch.no_grad():
+        for label in ("flax init", "layer scales U(0.2, 0.6)"):
+            if label != "flax init":
+                g = torch.Generator().manual_seed(15)
+                for m in model.modules():
+                    if isinstance(m, LayerScale):
+                        m.gamma.copy_(torch.empty(m.gamma.shape).uniform_(
+                            0.2, 0.6, generator=g))
+            dec_k = model(x).float()
+            set_attention(model, "plain")
+            dec_p = model(x).float()
+            set_attention(model, "kernel")
+            readings[label] = {}
+            for piece, sl in (("cls", (..., slice(0, 7))),
+                              ("kpt_xy", (..., slice(7, None)))):
+                a, b = dec_k[sl], dec_p[sl]
+                if piece == "kpt_xy":
+                    a, b = (t.reshape(*t.shape[:2], 4, 3) for t in (a, b))
+                    readings[label]["kpt_vis"] = rel_err(a[..., 2], b[..., 2])
+                    a, b = a[..., :2], b[..., :2]
+                readings[label][piece] = rel_err(a, b)
+            for piece, (mabs, mrel, meanrel) in readings[label].items():
+                if not (torch.isfinite(dec_k).all() and mrel < 0.06
+                        and meanrel < 5e-3):
+                    raise AssertionError(
+                        f"phase 15: DINOv3Pose decoded {piece}, {label}: K8 "
+                        f"route vs plain attention max_rel {mrel} (<0.06), "
+                        f"mean_rel {meanrel} (<5e-3)")
+    log(f"phase 15 DINOv3Pose ViT-B/16 640x640 decoded pre-NMS output "
+        f"{tuple(dec_k.shape)}, K8 route vs plain attention, [max abs, max "
+        f"rel, mean rel] of each piece, rel to its max |plain| (bound max "
+        f"rel < 0.06, mean rel < 5e-3): {json.dumps(readings)}")
+
+    # -- person_crops on K7 against the plain crops (bit-equal) ------------
+    boxes = torch.tensor([[[40.0 + 30 * j, 60.0 + 10 * j, 200.0 + 25 * j,
+                            520.0 - 5 * j] for j in range(16)]] * VB,
+                         device="cuda")
+    valid = torch.arange(16, device="cuda")[None].expand(VB, -1) < 12
+    crops, center, scale = person_crops(frames, boxes, valid, (H, W))
+    from tpupose_torch.ops.affine import get_affine_matrix
+
+    mats = get_affine_matrix(center, scale, 0.0, (H, W))
+    plain = batched_affine_warp(frames.repeat_interleave(16, 0), mats, (H, W))
+    nd = int((crops != plain).sum())
+    log(f"phase 15 person_crops (8 frames 640x640, D=16 -> {tuple(crops.shape)}"
+        f") on K7 vs the plain crops: {nd} elements differ (must be 0)")
+    if nd:
+        raise AssertionError("phase 15: person_crops on K7 is not bit-equal")
+
+    # -- timings: detector routes, NMS, the stage-2 step --------------------
+    pred = YoloPosePredictor(model, 7, 4, conf_threshold=VIDEO_CONF,
+                             appearance=True)
+    rates = {}
+    with torch.no_grad():
+        rates["k8"] = _host_ms(lambda: model(x))
+        set_attention(model, "plain")
+        rates["plain"] = _host_ms(lambda: model(x))
+        set_attention(model, "kernel")
+        vit_mod.fused_attention = sdpa_attention
+        try:
+            rates["sdpa"] = _host_ms(lambda: model(x))
+        finally:
+            vit_mod.fused_attention = fused_attention
+        rates["predict_dispatch_fetch"] = _host_ms(lambda: pred(frames))
+        dec = model(x).float()
+        cls = dec[..., :7]
+        kp = dec[..., 7:].reshape(VB, -1, 4, 3)
+        bx = torch.stack([kp[..., 0].amin(2), kp[..., 1].amin(2),
+                          kp[..., 0].amax(2), kp[..., 1].amax(2)], -1)
+        from tpupose_torch.ops.nms import batched_pose_nms
+
+        def nms():
+            return batched_pose_nms(bx, cls.amax(-1),
+                                    cls.argmax(-1).to(torch.int32), kp,
+                                    0.45, VIDEO_CONF, 100)
+
+        rates["nms"] = _host_ms(nms)
+        nms_kernels = _device_kernels(nms)
+        nms_device = device_ms(nms, iters=5, label="nms")
+        pmodel = Builder(_cfg(SIMPLE_BASELINE, {}), "cuda").model()
+        two = TwoStagePosePredictor(pmodel, (H, W), (64, 48))
+        rates["stage2_step_d16"] = _host_ms(
+            lambda: two._pose_step(frames, boxes, valid))
+    # K8 alone at the detector's shape, beside SDPA (device time)
+    bf16_peak, _, hbm, _ = PEAKS["PCIe" if "PCIe" in card else "SXM"]
+    k8_row, k8_calls = attention_row(VB, 1605, 12, 16, bf16_peak, hbm)
+    for key, fn in k8_calls.items():
+        k8_row[key] = device_ms(fn, label=f"flash_attention.video.{key}")
+    log(f"phase 15 K8 at the detector's ({VB}, 1605, 12, 64) on {card}, "
+        f"device ms under torch.profiler: " + json.dumps(
+            {k: k8_row[k] for k in ("ms", "plain_ms", "library_ms",
+                                    "bound_ms")}))
+    log(f"phase 15 ms on {card} (host clock around a synchronize, median of "
+        f"10; B = 8 frames of 640x640): detector forward by attention route "
+        f"{json.dumps({k: rates[k] for k in ('k8', 'sdpa', 'plain')})}, "
+        f"YoloPosePredictor with appearance "
+        f"{rates['predict_dispatch_fetch']:.3f}, NMS "
+        f"{rates['nms']:.3f} (device {nms_device:.3f} ms, {nms_kernels} "
+        f"device kernels a call), stage-2 step at D = 16 (128 crops of "
+        f"256x192, R50 kernel route) {rates['stage2_step_d16']:.3f}")
+    del model, pred, pmodel, two, dec, dec_k, dec_p
+    torch.cuda.empty_cache()
+
+    # -- cli.video: single-stage (through main), then two-stage -------------
+    runs = {}
+    for label, argv_extra in (("single-stage", []),
+                              ("two-stage", [f"pose_cfg={pose_json}"])):
+        out_dir = VIDEO_DIR / label
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = {}
+        run_video = cli_video.run_video
+
+        def recorded(*a, **kw):
+            stats.update(run_video(*a, **kw))
+            return stats
+
+        cli_video.run_video = recorded      # main's call, its stats kept
+        try:
+            rc = cli_video.main(["--cfg", str(det_json),
+                                 f"eval.conf_threshold={VIDEO_CONF}",
+                                 f"frames_dir={frames_dir}",
+                                 f"output_dir={out_dir}", *argv_extra])
+        finally:
+            cli_video.run_video = run_video
+        if rc != 0:
+            raise AssertionError(f"phase 15: cli.video exited {rc}")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: c.launches for k, c in counters.items()}
+        lines = [json.loads(s) for s in
+                 (out_dir / "tracks.jsonl").read_text().splitlines()]
+        n_tracks = [len(r["tracks"]) for r in lines]
+        drawn = sum(1 for i in range(VIDEO_FRAMES)
+                    if (out_dir / f"frame_{i}.jpg").exists())
+        want = {"flash_attention": 12 * chunks}
+        if label == "two-stage":
+            want.update(affine_warp=chunks, stem_pool=chunks,
+                        layer1=3 * chunks, bridge=chunks, dark_decode=chunks)
+        want = {k: want.get(k, 0) for k in counts}
+        kpts = {len(t["keypoints"]) for r in lines for t in r["tracks"]}
+        runs[label] = {"launches": counts, "tracks_per_frame_min":
+                       min(n_tracks), "tracks_per_frame_max": max(n_tracks),
+                       "max_track_id": max(t["id"] for r in lines
+                                           for t in r["tracks"]),
+                       "wall_s": wall,
+                       "loop_frames_per_s": stats["frames"]
+                       / stats["seconds"]}
+        log(f"phase 15 cli.video {label} ({VIDEO_FRAMES} frames of 480x640, "
+            f"{chunks} chunks of {VB}, conf {VIDEO_CONF}) on {card}: "
+            f"{json.dumps(runs[label])}; keypoints per track {kpts}, "
+            f"{drawn} annotated frames")
+        if counts != want:
+            raise AssertionError(f"phase 15 {label}: launches {counts}, want "
+                                 f"{want}")
+        if [r["frame"] for r in lines] != list(range(VIDEO_FRAMES)) \
+                or min(n_tracks) < 1 or drawn != VIDEO_FRAMES \
+                or kpts != ({17} if label == "two-stage" else {4}):
+            raise AssertionError(f"phase 15 {label}: tracks.jsonl has "
+                                 f"{len(lines)} lines, tracks per frame "
+                                 f"{n_tracks}, keypoints {kpts}, {drawn} "
+                                 f"frames drawn")
+    results["flash_attention"]["video_launches_per_chunk"] = 12
+    for k in ("affine_warp", "stem_pool", "layer1", "bridge", "dark_decode"):
+        results[k]["video_launches_per_chunk"] = \
+            runs["two-stage"]["launches"][k] // chunks
+    results["flash_attention"]["video"] = {
+        "detector_ms_b8": {k: rates[k] for k in ("k8", "sdpa", "plain")},
+        "nms_ms": rates["nms"], "nms_device_ms": nms_device,
+        "nms_device_kernels": nms_kernels,
+        "stage2_step_d16_ms": rates["stage2_step_d16"],
+        "k8_b8_l1605": {k: k8_row[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err")},
+        "runs": runs}
+    shutil.rmtree(VIDEO_DIR, ignore_errors=True)
+    log(f"phase 15 seconds: {time.perf_counter() - t_phase:.1f}")
+
+
+def video_main(out_path: Path) -> int:
+    """Phase 15 on its own (a child process main() starts, as phase
+    11's): its rows of the kernels JSON go to `out_path`."""
+    from tpupose_torch.ops import _build
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout
+    card = smi.strip().splitlines()[0]
+    _build.build_all()
+    results = {k: {} for k in ("flash_attention", "affine_warp", "stem_pool",
+                               "layer1", "bridge", "dark_decode")}
+    try:
+        video_phase(results, card)
+    finally:
+        shutil.rmtree(VIDEO_DIR, ignore_errors=True)
+    out_path.write_text(json.dumps(results))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2620,6 +2970,16 @@ def main() -> int:
             results[kernel][k] = v
     phase12.unlink()
 
+    # -- phase 15: the multi-person video pipeline (DINOv3Pose ViT-B 640x640
+    # on K8, NMS, appearance, two-stage R50 on K7 and K1-K4, the tracker,
+    # cli.video), in a child process, as phases 11-14 ---------------------
+    phase15 = ROOT / "build" / "chip_smoke_phase15.json"
+    subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                    "--phase15", str(phase15)], check=True, timeout=900)
+    for kernel, row in json.loads(phase15.read_text()).items():
+        results[kernel].update(row)
+    phase15.unlink()
+
     # -- phase 9: device times, measured last so that no profiler session
     # precedes the timing of any other phase -----------------------------------
     k8_row = results["flash_attention"]
@@ -2738,4 +3098,9 @@ if __name__ == "__main__":
         sys.exit(phase11_main(Path(sys.argv[2]), Path(sys.argv[3])))
     if len(sys.argv) == 3 and sys.argv[1] == "--phase12":
         sys.exit(hrnet_main(Path(sys.argv[2])))
+    if len(sys.argv) == 3 and sys.argv[1] == "--phase15":
+        if not torch.cuda.is_available():
+            print("chip_smoke: CUDA is not available", file=sys.stderr)
+            sys.exit(2)
+        sys.exit(video_main(Path(sys.argv[2])))
     sys.exit(main())

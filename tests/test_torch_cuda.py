@@ -905,3 +905,126 @@ def test_ptq_on_the_card_under_autocast(gpu):
     den = want.abs().max()
     assert (d.max() / den).item() < 0.15 and (d.mean() / den).item() < 0.02
     assert not any("forward" in vars(mod) for mod in m.modules())
+
+
+def _vitb_detector():
+    """DINOv3Pose ViT-B/16 at 640x640 (dinov3_vitpose.yaml) through the
+    Builder, with layer scales drawn in U(0.2, 0.6) so attention shows in
+    the output (flax's 1e-5 makes every block nearly the identity)."""
+    from tpupose_torch.configs import load_config
+    from tpupose_torch.engine.builder import Builder
+    from tpupose_torch.models.backbones.vit import LayerScale
+
+    cfg = load_config("tpupose/configs/method/dinov3_vitpose.yaml")
+    model = Builder(cfg, "cuda").model()
+    g = torch.Generator().manual_seed(15)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, LayerScale):
+                m.gamma.copy_(torch.empty(m.gamma.shape).uniform_(
+                    0.2, 0.6, generator=g))
+    return model
+
+
+def test_dinov3_vitb_640_forward_k8_against_plain_attention(gpu):
+    """The detector's decoded output on the K8 route (12 launches a
+    forward) against plain attention, piece by piece: within 0.06 of each
+    piece's max |value| and 5e-3 on average (the ViTPose bound)."""
+    from tpupose_torch.ops.cuda_attention import flash_attention
+    from tpupose_torch.ops.preprocess import normalize_images
+
+    model = _vitb_detector()
+    g = torch.Generator().manual_seed(16)
+    x = normalize_images(torch.randint(0, 256, (2, 640, 640, 3), generator=g,
+                                       dtype=torch.uint8).to(gpu),
+                         scale_only=True)
+    with torch.no_grad():
+        n0 = flash_attention.launches
+        got = model(x).float()
+        assert flash_attention.launches == n0 + 12
+        for m in model.modules():
+            if hasattr(m, "impl"):
+                m.impl = "plain"
+        want = model(x).float()
+    assert got.shape == (2, 8400, 7 + 12) and torch.isfinite(got).all()
+    kp_g, kp_w = got[..., 7:].reshape(2, -1, 4, 3), \
+        want[..., 7:].reshape(2, -1, 4, 3)
+    for a, b in ((got[..., :7], want[..., :7]),
+                 (kp_g[..., :2], kp_w[..., :2]),
+                 (kp_g[..., 2], kp_w[..., 2])):
+        den = b.abs().max().clamp_min(1e-12)
+        assert ((a - b).abs().max() / den).item() < 0.06
+        assert ((a - b).abs().mean() / den).item() < 5e-3
+
+
+def test_person_crops_on_k7_equal_the_plain_crops(gpu):
+    """person_crops at the video path's shape (8 frames of 640x640, 16
+    boxes each, invalid slots on the safe box) on K7, bit-equal to the
+    plain crops of the same matrices."""
+    from tpupose_torch.engine.two_stage import person_crops
+    from tpupose_torch.ops.affine import get_affine_matrix
+    from tpupose_torch.ops.cuda_warp import _plain_crops, crops_from_frames
+
+    g = torch.Generator().manual_seed(17)
+    frames = torch.randint(0, 256, (8, 640, 640, 3), generator=g,
+                           dtype=torch.uint8).to(gpu)
+    xy = torch.rand((8, 16, 2), generator=g) * 560
+    wh = torch.rand((8, 16, 2), generator=g) * 300 + 8
+    boxes = torch.cat([xy, xy + wh], -1).to(gpu)
+    valid = (torch.rand((8, 16), generator=g) > 0.3).to(gpu)
+    n0 = crops_from_frames.launches
+    crops, center, scale = person_crops(frames, boxes, valid, (256, 192))
+    assert crops_from_frames.launches == n0 + 1
+    mats = get_affine_matrix(center, scale, 0.0, (256, 192))
+    _assert_warp_equal(crops, _plain_crops(frames, mats, (256, 192)))
+
+
+def test_two_stage_step_launches_exactly(gpu):
+    """One two-stage chunk (8 frames, D = 16) on the R50 256x192 config:
+    exactly 1 K7, 1 K1, 3 K2, 1 K3 and 1 K4 launch, and no K5, K6, K8 or
+    K8b; then the detector chained in front adds exactly 12 K8."""
+    from tpupose_torch.configs import load_config
+    from tpupose_torch.engine.builder import Builder
+    from tpupose_torch.engine.predictor import YoloPosePredictor
+    from tpupose_torch.engine.two_stage import TwoStagePosePredictor
+    from tpupose_torch.ops.cuda_attention import (flash_attention,
+                                                  flash_attention_backward)
+    from tpupose_torch.ops.cuda_bridge import bridge
+    from tpupose_torch.ops.cuda_decode import dark_decode
+    from tpupose_torch.ops.cuda_head import run_deconv
+    from tpupose_torch.ops.cuda_layer1 import layer1
+    from tpupose_torch.ops.cuda_stages import run_chunk
+    from tpupose_torch.ops.cuda_stem import stem_pool
+    from tpupose_torch.ops.cuda_warp import affine_warp, crops_from_frames
+
+    counters = {"K7": crops_from_frames, "K1": stem_pool, "K2": layer1,
+                "K3": bridge, "K4": dark_decode, "K5": run_chunk,
+                "K6": run_deconv, "K8": flash_attention,
+                "K8b": flash_attention_backward, "warp": affine_warp}
+    cfg = load_config("tpupose/configs/method/simple_baseline.yaml")
+    two = TwoStagePosePredictor(Builder(cfg, "cuda").model(), (256, 192),
+                                (64, 48), max_persons=16,
+                                detector=YoloPosePredictor(
+                                    _vitb_detector(), 7, 4,
+                                    conf_threshold=0.005))
+    g = torch.Generator().manual_seed(18)
+    frames = torch.randint(0, 256, (8, 640, 640, 3), generator=g,
+                           dtype=torch.uint8).to(gpu)
+    boxes = torch.tensor([[[40.0 + 30 * j, 60.0, 220.0 + 20 * j, 600.0]
+                           for j in range(16)]] * 8, device=gpu)
+    valid = torch.ones((8, 16), dtype=torch.bool, device=gpu)
+    two._pose_step(frames, boxes, valid)            # builds and warms up
+    torch.cuda.synchronize()
+    before = {k: c.launches for k, c in counters.items()}
+    coords, scores = two._pose_step(frames, boxes, valid)
+    torch.cuda.synchronize()
+    got = {k: c.launches - before[k] for k, c in counters.items()}
+    assert got == {"K7": 1, "K1": 1, "K2": 3, "K3": 1, "K4": 1, "K5": 0,
+                   "K6": 0, "K8": 0, "K8b": 0, "warp": 0}
+    assert coords.shape == (8, 16, 17, 2) and torch.isfinite(coords).all()
+    before = {k: c.launches for k, c in counters.items()}
+    out = two(frames.cpu().numpy())
+    got = {k: c.launches - before[k] for k, c in counters.items()}
+    assert got == {"K7": 1, "K1": 1, "K2": 3, "K3": 1, "K4": 1, "K5": 0,
+                   "K6": 0, "K8": 12, "K8b": 0, "warp": 0}
+    assert out["keypoints"].shape == (8, 16, 17, 3)

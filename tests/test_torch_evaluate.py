@@ -32,6 +32,7 @@ from tpupose_torch.data.loader import BatchLoader as PLoader
 from tpupose_torch.engine.evaluator import TopDownEvaluator
 from tpupose_torch.models.simple_baseline import SimpleBaseline
 from tpupose_torch.utils.convert import from_flax_simple_baseline
+from torch_threads import one_torch_thread  # noqa: F401
 
 K = 4
 PAIRS = np.array([(1, 2)])

@@ -44,6 +44,7 @@ from tpupose_torch.ops.cuda_stages import (_smem_bytes, build_stage,
 from tpupose_torch.ops.cuda_stem import (center_raw, fold_stem_weights,
                                          stem_pool_reference)
 from tpupose_torch.utils.convert import conv_weight, deconv_weight
+from torch_threads import one_torch_thread  # noqa: F401
 
 STD = np.array([0.229, 0.224, 0.225])
 

@@ -28,6 +28,7 @@ from tpupose_torch.ops.cuda_layer1 import fold_layer1_weights, layer1
 from tpupose_torch.ops.cuda_stem import fold_stem_weights, stem_pool
 from tpupose_torch.ops.preprocess import normalize_images
 from tpupose_torch.utils.convert import from_flax_simple_baseline
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _rel(got, want):

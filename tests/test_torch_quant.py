@@ -42,6 +42,7 @@ from tpupose_torch.utils.convert import (from_flax_hrnet,
                                          from_flax_simple_baseline)
 
 from test_torch_model import _randomize_bn
+from torch_threads import one_torch_thread  # noqa: F401
 
 T = torch.from_numpy
 TINY = {"width": 8, "modules": (1, 1, 1)}
@@ -56,18 +57,6 @@ def tiny_spec():
     mp.setitem(thrnet.HRNET_SPECS, "hrnet_t8", TINY)
     yield
     mp.undo()
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """torch on one CPU thread for the module: the suite runs files in
-    parallel worker processes, and a pool of a thread a core in each of
-    them oversubscribes the cores, where its OpenMP barriers spin (a
-    6-second HRNet training took minutes beside the other workers)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _pair(name, seed=0, hw=None):

@@ -20,6 +20,7 @@ from tpupose_torch.configs import load_config
 from tpupose_torch.engine.builder import Builder
 from tpupose_torch.ops.cuda_stem import (compute_dtype, fold_fast_r50,
                                          is_fast_r50)
+from torch_threads import one_torch_thread  # noqa: F401
 
 CFG = "tpupose/configs/method/simple_baseline.yaml"
 

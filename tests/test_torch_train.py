@@ -59,6 +59,7 @@ from tpupose_torch.ops.preprocess import color_jitter
 from tpupose_torch.utils.convert import conv_weight, from_flax_simple_baseline
 
 from test_torch_model import _randomize_bn
+from torch_threads import all_torch_threads, one_torch_thread  # noqa: F401
 
 T = torch.from_numpy
 
@@ -563,6 +564,7 @@ def test_port_warp_is_the_eager_oracle_not_the_jitted_one():
     assert d.max() <= 1e-2
 
 
+@pytest.mark.usefixtures("all_torch_threads")
 def test_port_gradients_hold_float64_where_flax_float32_does_not():
     """The floor of the whole-step comparison, pinned: on this test's
     ResNet-18 in train mode (noise pixels, no augmentation), the port's

@@ -36,6 +36,7 @@ from tpupose_torch.models.backbones import vit as tvit
 from tpupose_torch.models.vitpose import ViTPose
 from tpupose_torch.ops.attention import attention_reference, fused_attention
 from tpupose_torch.utils.convert import from_flax_vitpose
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 VITPOSE_S = str(ROOT / "tpupose" / "configs" / "method" / "vitpose_s.yaml")

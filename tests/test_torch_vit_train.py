@@ -53,6 +53,7 @@ from tpupose_torch.utils.convert import from_flax_vitpose
 from test_torch_train import _jitter_draws
 from test_torch_vit import (HW, VITPOSE_S, _cfg, _images, _pair, _rel,  # noqa: F401
                             classic, tiny_size)
+from torch_threads import one_torch_thread  # noqa: F401
 
 T = torch.from_numpy
 HM = (16, 12)

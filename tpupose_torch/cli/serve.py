@@ -39,13 +39,9 @@ def build_predictor(cfg, weights: str = "", device="cuda"):
     builder = Builder(cfg, device)
     model = builder.model()
     if weights:
-        from tpupose_torch.engine.checkpoint import restore_path
-        from tpupose_torch.engine.train_state import TrainState
+        from tpupose_torch.engine.checkpoint import restore_for_eval
 
-        state = TrainState(model, builder.optimizer(model, 1),
-                           ema_decay=cfg.train.ema_decay)
-        state, _ = restore_path(state, weights)
-        model = state.for_eval()
+        model = restore_for_eval(builder, model, weights)
     else:
         printW("no --ckpt given: serving random weights")
 

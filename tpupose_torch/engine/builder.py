@@ -1,12 +1,12 @@
-"""Builder: config -> objects, for the heatmap family (counterpart of
-tpupose/engine/builder.py).
+"""Builder: config -> objects (counterpart of tpupose/engine/builder.py).
 
-Ported: `model()` (simple_baseline, hrnet, vitpose), `loss()` (joints_mse,
-joints_mse_weighted), `lr_scheduler()`, `optimizer()` (head/base lr
-split, frozen backbone, global-norm clipping), `dataset()` (synthetic,
-coco) and `dataloader()`. Any other name raises ValueError naming the ROADMAP
-item that ports it. The JAX package's `set_device` (a device mesh) has
-no counterpart yet: the port trains on one device.
+Ported: `model()` (simple_baseline, hrnet, vitpose, dinov3_pose),
+`loss()` (joints_mse, joints_mse_weighted), `lr_scheduler()`,
+`optimizer()` (head/base lr split, frozen backbone, global-norm
+clipping), `dataset()` (synthetic, coco) and `dataloader()`. Any other
+name raises ValueError naming the ROADMAP item that ports it. The JAX
+package's `set_device` (a device mesh) has no counterpart yet: the port
+trains on one device.
 """
 
 from __future__ import annotations
@@ -25,8 +25,7 @@ def is_backbone_path(name: str) -> bool:
     return name.startswith("backbone.")
 
 
-_MODEL_ITEMS = {"dinov3_pose": "Queue A item 8",
-                "simcc": "Queue A item 9", "deeppose": "Queue A item 9",
+_MODEL_ITEMS = {"simcc": "Queue A item 9", "deeppose": "Queue A item 9",
                 "bottom_up": "Queue A item 9", "fskd": "Queue A item 10",
                 "fcmae": "Queue A item 10"}
 
@@ -43,7 +42,7 @@ class Builder:
 
     # -- model -----------------------------------------------------------------
     def model(self):
-        """SimpleBaseline, HRNetPose or ViTPose with flax's default init
+        """SimpleBaseline, HRNetPose, ViTPose or DINOv3Pose with flax's init
         drawn from a generator seeded by train.seed, float32 master
         weights, and bf16 autocast when train.mixed_precision (else
         float32 throughout). train.remat checkpoints the blocks
@@ -72,6 +71,17 @@ class Builder:
                             device="cpu", param_dtype=torch.float32,
                             remat=remat)
             init_vitpose_like_flax(model, g)
+        elif m.name == "dinov3_pose":
+            from tpupose_torch.models.dinov3_pose import (
+                DINOv3Pose, init_dinov3_pose_like_flax)
+
+            model = DINOv3Pose(m.backbone, m.num_keypoints, m.num_classes,
+                               tuple(m.neck_channels), tuple(m.strides),
+                               freeze_backbone=m.freeze_backbone,
+                               reg_max=self._reg_max(), dtype=dtype,
+                               device="cpu", param_dtype=torch.float32,
+                               remat=remat)
+            init_dinov3_pose_like_flax(model, g)
         elif m.name == "hrnet":
             from tpupose_torch.models.backbones.hrnet import HRNetPose
 
@@ -88,6 +98,13 @@ class Builder:
                                    remat=remat)
             init_like_flax(model, g)
         return model.to(self.device)
+
+    def _reg_max(self) -> int:
+        """The v8_pose loss needs the head's DFL box branch: loss and head
+        agree on one reg_max (16 unless the config sets one)."""
+        if self.cfg.loss.name == "v8_pose":
+            return self.cfg.model.reg_max or 16
+        return self.cfg.model.reg_max
 
     # -- loss ------------------------------------------------------------------
     def loss(self):

@@ -118,3 +118,15 @@ def restore_path(state, path: str):
     if best:
         path = path[: -len("@best")]
     return CheckpointManager(path).restore(state, best=best)
+
+
+def restore_for_eval(builder, model, path: str):
+    """`model` (made by `builder`) with the weights of the checkpoint
+    `path` (a directory, `<dir>@best` for the best slot), ready for
+    evaluation: the EMA parameters where the run kept them."""
+    from tpupose_torch.engine.train_state import TrainState
+
+    state = TrainState(model, builder.optimizer(model, 1),
+                       ema_decay=builder.cfg.train.ema_decay)
+    state, _ = restore_path(state, path)
+    return state.for_eval()

@@ -11,6 +11,7 @@ MODELS = {
     "simple_baseline": "tpupose_torch.models.simple_baseline:SimpleBaseline",
     "hrnet": "tpupose_torch.models.backbones.hrnet:HRNetPose",
     "vitpose": "tpupose_torch.models.vitpose:ViTPose",
+    "dinov3_pose": "tpupose_torch.models.dinov3_pose:DINOv3Pose",
 }
 
 

@@ -113,12 +113,19 @@ def init_vitpose_like_flax(model: ViTPose, g: torch.Generator):
     zero biases, unit LayerNorm/BatchNorm scales, truncated_normal(0.02)
     CLS and storage tokens, layer scales 1e-5."""
     init_like_flax(model, g)
-    vit = model.backbone
+    init_vit_like_flax(model.backbone, g)
+
+
+@torch.no_grad()
+def init_vit_like_flax(vit: DinoViT, g: torch.Generator):
+    """The DinoViT's own flax initializers after `init_like_flax`:
+    truncated_normal(0.02) CLS and storage tokens drawn from `g`, layer
+    scales 1e-5."""
     for p in (vit.cls_token, vit.storage_tokens):
         w = torch.empty(p.shape)
         nn.init.trunc_normal_(w, 0.0, 0.02, -0.04, 0.04, generator=g)
         p.copy_(w)
-    for m in model.modules():
+    for m in vit.modules():
         if isinstance(m, LayerScale):
             m.gamma.fill_(1e-5)
 

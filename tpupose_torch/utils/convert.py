@@ -7,7 +7,9 @@ tpupose/utils/convert.py).
 `from_flax_hrnet` a flax HRNetPose tree onto
 `tpupose_torch.models.backbones.hrnet.HRNetPose`, and
 `from_flax_vitpose` a flax ViTPose tree onto
-`tpupose_torch.models.vitpose.ViTPose`. The first two serve two
+`tpupose_torch.models.vitpose.ViTPose`, and `from_flax_dinov3_pose` a
+flax DINOv3Pose tree (ConvNeXt or ViT backbone) onto
+`tpupose_torch.models.dinov3_pose.DINOv3Pose`. The first two serve two
 uses: giving the port the JAX package's weights (serving parity, and
 the same start for a training comparison), and mapping the params and
 batch stats (or the EMA params) that JAX reached after some train steps
@@ -225,6 +227,44 @@ def _heatmap_head(sd: dict, hp: Mapping, hs: Mapping, paths=None,
         paths["head.final_layer"] = f"{pre}Conv_0"
 
 
+def _with_bias(sd: dict, prefix: str, p: Mapping, paths, path: str,
+               dense: bool = False):
+    """A flax Conv (or Dense) with its bias -> `{prefix}.weight/.bias`;
+    records the flax module path in `paths` (when given)."""
+    if dense:
+        _dense(sd, prefix, p)
+    else:
+        sd[f"{prefix}.weight"] = conv_weight(p["kernel"])
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+    if paths is not None:
+        paths[prefix] = path
+
+
+def _dino_vit(sd: dict, vp: Mapping, paths=None, path: str = "DinoViT_0"):
+    """A flax DinoViT subtree -> the port's DinoViT under `backbone.`."""
+    _with_bias(sd, "backbone.patch_embed.proj", vp["patch_embed"], paths,
+               f"{path}/patch_embed")
+    sd["backbone.cls_token"] = _t(vp["cls_token"])
+    sd["backbone.storage_tokens"] = _t(vp["storage_tokens"])
+    i = 0
+    while f"ViTBlock_{i}" in vp:
+        bp, t = vp[f"ViTBlock_{i}"], f"backbone.blocks.{i}"
+        bpath = f"{path}/ViTBlock_{i}"
+        _ln(sd, f"{t}.norm1", bp["LayerNorm_0"])
+        for name, key in (("qkv", "qkv"), ("proj", "proj")):
+            _with_bias(sd, f"{t}.attn.{name}", bp["RopeAttention_0"][key],
+                       paths, f"{bpath}/RopeAttention_0/{key}", dense=True)
+        sd[f"{t}.ls1.gamma"] = _t(bp["ls1"])
+        _ln(sd, f"{t}.norm2", bp["LayerNorm_1"])
+        _with_bias(sd, f"{t}.mlp.fc1", bp["Dense_0"], paths,
+                   f"{bpath}/Dense_0", dense=True)
+        _with_bias(sd, f"{t}.mlp.fc2", bp["Dense_1"], paths,
+                   f"{bpath}/Dense_1", dense=True)
+        sd[f"{t}.ls2.gamma"] = _t(bp["ls2"])
+        i += 1
+    _ln(sd, "backbone.norm", vp["norm"])
+
+
 def from_flax_vitpose(variables: Mapping) -> dict:
     """flax ViTPose {params[, batch_stats]} (numpy or jax arrays) -> state
     dict for tpupose_torch's ViTPose (float32 CPU tensors). The decoder
@@ -232,26 +272,8 @@ def from_flax_vitpose(variables: Mapping) -> dict:
     (simple)."""
     P = variables["params"]
     S = variables.get("batch_stats", {})
-    vp = P["DinoViT_0"]
     sd: dict = {}
-    sd["backbone.patch_embed.proj.weight"] = conv_weight(
-        vp["patch_embed"]["kernel"])
-    sd["backbone.patch_embed.proj.bias"] = _t(vp["patch_embed"]["bias"])
-    sd["backbone.cls_token"] = _t(vp["cls_token"])
-    sd["backbone.storage_tokens"] = _t(vp["storage_tokens"])
-    i = 0
-    while f"ViTBlock_{i}" in vp:
-        bp, t = vp[f"ViTBlock_{i}"], f"backbone.blocks.{i}"
-        _ln(sd, f"{t}.norm1", bp["LayerNorm_0"])
-        _dense(sd, f"{t}.attn.qkv", bp["RopeAttention_0"]["qkv"])
-        _dense(sd, f"{t}.attn.proj", bp["RopeAttention_0"]["proj"])
-        sd[f"{t}.ls1.gamma"] = _t(bp["ls1"])
-        _ln(sd, f"{t}.norm2", bp["LayerNorm_1"])
-        _dense(sd, f"{t}.mlp.fc1", bp["Dense_0"])
-        _dense(sd, f"{t}.mlp.fc2", bp["Dense_1"])
-        sd[f"{t}.ls2.gamma"] = _t(bp["ls2"])
-        i += 1
-    _ln(sd, "backbone.norm", vp["norm"])
+    _dino_vit(sd, P["DinoViT_0"])
     if "ConvTranspose_0" in P:
         _heatmap_head(sd, P, S)
     else:
@@ -259,4 +281,110 @@ def from_flax_vitpose(variables: Mapping) -> dict:
                           ("head.final_layer", "Conv_1")):
             sd[f"{name}.weight"] = conv_weight(P[key]["kernel"])
             sd[f"{name}.bias"] = _t(P[key]["bias"])
+    return sd
+
+
+def _convnext(sd: dict, cp: Mapping, paths, path: str = "ConvNeXt_0"):
+    """A flax ConvNeXt subtree -> the port's ConvNeXt under `backbone.`:
+    Conv_0 + LayerNorm_0 the stem, LayerNorm_i + Conv_i the downsample
+    before stage i, ConvNeXtBlock_k numbered across stages (a block's
+    stage told by its width)."""
+    dims = []
+    i = 0
+    while f"Conv_{i}" in cp:
+        dl = f"backbone.downsample_layers.{i}"
+        conv, norm = (f"{dl}.0", f"{dl}.1") if i == 0 else (f"{dl}.1",
+                                                            f"{dl}.0")
+        _with_bias(sd, conv, cp[f"Conv_{i}"], paths, f"{path}/Conv_{i}")
+        _ln(sd, norm, cp[f"LayerNorm_{i}"])
+        dims.append(int(np.shape(cp[f"Conv_{i}"]["kernel"])[-1]))
+        i += 1
+    counts = [0] * len(dims)
+    k = 0
+    while f"ConvNeXtBlock_{k}" in cp:
+        bp, bpath = cp[f"ConvNeXtBlock_{k}"], f"{path}/ConvNeXtBlock_{k}"
+        stage = dims.index(int(np.shape(bp["Conv_0"]["kernel"])[-1]))
+        t = f"backbone.stages.{stage}.{counts[stage]}"
+        counts[stage] += 1
+        _with_bias(sd, f"{t}.dwconv", bp["Conv_0"], paths, f"{bpath}/Conv_0")
+        _ln(sd, f"{t}.norm", bp["LayerNorm_0"])
+        _with_bias(sd, f"{t}.pwconv1", bp["Dense_0"], paths,
+                   f"{bpath}/Dense_0", dense=True)
+        _with_bias(sd, f"{t}.pwconv2", bp["Dense_1"], paths,
+                   f"{bpath}/Dense_1", dense=True)
+        if "gamma" in bp:
+            sd[f"{t}.gamma"] = _t(bp["gamma"])
+        if "GRN_0" in bp:
+            sd[f"{t}.grn.gamma"] = _t(bp["GRN_0"]["gamma"])
+            sd[f"{t}.grn.beta"] = _t(bp["GRN_0"]["beta"])
+        k += 1
+
+
+def from_flax_dinov3_pose(variables: Mapping,
+                          paths: dict | None = None) -> dict:
+    """flax DINOv3Pose {params, batch_stats} -> state dict for
+    tpupose_torch's DINOv3Pose (float32 CPU tensors), either backbone
+    (ConvNeXt_0 or DinoViT_0), reg_max 0 or > 0 (the box branch's
+    ConvBlocks and Conv_l directly in PoseHead_0). Follows flax's
+    numbering in call order: FeatureAdaptor_0/ConvBlock_{2l, 2l+1},
+    SPPF_0/ConvBlock_{0,1}, PAN_0 ConvBlock_0 / BottleneckCSP_0 (the
+    top-down P4), ConvBlock_1 / BottleneckCSP_1 (P3), ConvBlock_2 /
+    BottleneckCSP_2 (bottom-up P4), ConvBlock_3 / BottleneckCSP_3 (P5),
+    and per level _ClsBranch_l / _KptBranch_l. `paths` as in
+    from_flax_simple_baseline (dense layers included: JAX's PTQ
+    quantizes them)."""
+    P, S = variables["params"], variables["batch_stats"]
+    sd: dict = {}
+
+    def cb(prefix, p, s, path):
+        _conv(sd, f"{prefix}.conv", p["Conv_0"], paths, f"{path}/Conv_0")
+        _bn(sd, f"{prefix}.bn", p["BatchNorm_0"], s["BatchNorm_0"])
+
+    def scope(p, s, path, i, kind="ConvBlock"):
+        return p[f"{kind}_{i}"], s[f"{kind}_{i}"], f"{path}/{kind}_{i}"
+
+    def csp(prefix, p, s, path):
+        for name, i in (("cv1", 0), ("cv2", 1), ("cv3", 2)):
+            cb(f"{prefix}.{name}", *scope(p, s, path, i))
+        b = 0
+        while f"Bottleneck_{b}" in p:
+            bp, bs, bpath = scope(p, s, path, b, "Bottleneck")
+            cb(f"{prefix}.m.{b}.cv1", *scope(bp, bs, bpath, 0))
+            cb(f"{prefix}.m.{b}.cv2", *scope(bp, bs, bpath, 1))
+            b += 1
+
+    if "ConvNeXt_0" in P:
+        _convnext(sd, P["ConvNeXt_0"], paths)
+    else:
+        _dino_vit(sd, P["DinoViT_0"], paths)
+    fp, fs = P["FeatureAdaptor_0"], S["FeatureAdaptor_0"]
+    for lvl in range(3):
+        for j in range(2):
+            cb(f"adaptor.levels.{lvl}.{j}",
+               *scope(fp, fs, "FeatureAdaptor_0", 2 * lvl + j))
+    for name, i in (("cv1", 0), ("cv2", 1)):
+        cb(f"sppf.{name}", *scope(P["SPPF_0"], S["SPPF_0"], "SPPF_0", i))
+    pp, ps = P["PAN_0"], S["PAN_0"]
+    for i, (red, out) in enumerate((("reduce4", "csp4"),
+                                    ("reduce3", "csp3"),
+                                    ("down4", "out4"), ("down5", "out5"))):
+        cb(f"pan.{red}", *scope(pp, ps, "PAN_0", i))
+        csp(f"pan.{out}", *scope(pp, ps, "PAN_0", i, "BottleneckCSP"))
+    hp, hs, hpath = P["PoseHead_0"], S["PoseHead_0"], "PoseHead_0"
+    lvl = 0
+    while f"_ClsBranch_{lvl}" in hp:
+        if f"Conv_{lvl}" in hp:                     # the DFL box branch
+            for j in range(2):
+                cb(f"head.box.{lvl}.blocks.{j}",
+                   *scope(hp, hs, hpath, 2 * lvl + j))
+            _with_bias(sd, f"head.box.{lvl}.out", hp[f"Conv_{lvl}"], paths,
+                       f"{hpath}/Conv_{lvl}")
+        for kind, n in (("cls", 4), ("kpt", 2)):
+            name = f"_{kind.capitalize()}Branch_{lvl}"
+            bp, bs, bpath = hp[name], hs[name], f"{hpath}/{name}"
+            for j in range(n):
+                cb(f"head.{kind}.{lvl}.blocks.{j}", *scope(bp, bs, bpath, j))
+            _with_bias(sd, f"head.{kind}.{lvl}.out", bp["Conv_0"], paths,
+                       f"{bpath}/Conv_0")
+        lvl += 1
     return sd
