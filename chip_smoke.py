@@ -170,6 +170,30 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
      PCK@0.2 1.0, and the bf16 kernel route (K1-K4), CudaServingEngine
      (K5/K6), the Int8Engine and the PTQ intercept each within 0.005 PCK
      and 1 crop px mean keypoint distance of the bf16 forward;
+  15. (after 14, in a third child process; `python3 chip_smoke.py
+     --phase15 <out.json>` runs it alone) the multi-person video
+     pipeline: DINOv3Pose ViT-B/16 640x640 through Builder, its decoded
+     output on K8 against plain attention, person_crops on K7 bit-equal,
+     then cli.video single- and two-stage with exact launches a chunk
+     (see video_phase);
+  16. (after 15, in a fourth child process; `python3 chip_smoke.py
+     --phase16 <out.json>` runs it alone) DINOv3Pose training and
+     evaluation on dinov3_vitpose.yaml (ViT-B/16 640x640, B=16, bf16
+     autocast, AdamW) cut to 2 of 100 epochs: 16a frozen and 16b
+     unfrozen through Trainer, every step exactly 12 K8 and 0 / 12 K8b
+     launches, finite losses and parts, the backbone bit-unchanged /
+     moved, validate() finite with the running statistics unchanged,
+     evaluate() (val_loss + evaluate_yolo at conf 0.005, AP printed, not
+     gated), an exact resume, the step's img/s and peak memory on a
+     device batch, K8's and K8b's share of the unfrozen step's device
+     time; 16c one unfrozen step from the seed with O(1) layer scales on
+     K8/K8b against plain attention, the BatchNorms on their running
+     statistics (loss rel 1e-2, each gradient 5e-2 of its max, the
+     launches (12, 12) and (0, 0); with batch statistics, where SDPA's
+     gradients are as far from plain attention's, printed); 16d three
+     steps of v8_pose on the
+     ViT-B backbone and of the mosaic (data.mosaic_prob 0.5); the
+     synthetic set's construction seconds and the phase's seconds;
   9. device times under torch.profiler, last: K8, its plain version and
      SDPA at both shapes (their `ms`, `plain_ms`, `library_ms`: a K8
      launch is shorter than its wrapper's Python, so CUDA events around
@@ -184,12 +208,14 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
   6. a JSON line of every kernel's numbers, then the last line
      {"ok": true, "device": {...}}.
 
-Phases run in the order 1-5, 7, 3d, 3e, 4c, 8, 10, 11, 12-14, 9, 6. Exits
+Phases run in the order 1-5, 7, 3d, 3e, 4c, 8, 10, 11, 12-14, 15, 16, 9,
+6. Exits
 non-zero without printing a result where CUDA is unavailable. Needs one
 card; imports nothing of JAX. Writes only under build/ of the checkout
-(the kernels, the native host-IO library, the phase-7, phase-10 and
-phase-12 checkpoints and the phase-11 and phase-12 data, removed at the
-end). Each phase from 12 on prints its seconds.
+(the kernels, the native host-IO library, the phase-7, phase-10,
+phase-12 and phase-16 checkpoints and the phase-11, phase-12 and
+phase-15 data, removed at the end). Each phase from 12 on prints its
+seconds.
 """
 
 from __future__ import annotations
@@ -2230,6 +2256,394 @@ def video_main(out_path: Path) -> int:
     return 0
 
 
+# tpupose/configs/method/dinov3_pose_v8.yaml with the ViT-B/16 backbone of
+# DINOV3_VITPOSE (loss v8_pose, so the head's DFL box branch at reg_max 16)
+DINOV3_POSE_V8_VITB = {
+    "model": {"name": "dinov3_pose", "backbone": "dinov3_vit_base",
+              "num_keypoints": 4, "num_classes": 7,
+              "neck_channels": [192, 384, 768], "strides": [8, 16, 32],
+              "freeze_backbone": True, "reg_max": 16},
+    "data": {"name": "synthetic_yolo", "image_size": [640, 640],
+             "max_instances": 32},
+    "train": {"batch_size": 16, "epochs": 100, "warmup_epochs": 3},
+    "loss": {"name": "v8_pose"},
+    "optimizer": {"name": "adamw", "lr": 1.0e-3, "head_lr": 1.0e-2},
+    "lr_scheduler": {"name": "cosine"},
+}
+DINO_TRAIN_DIR = ROOT / "build" / "chip_smoke_dino_train"
+
+
+def _dino_trainer(base: dict, over: dict, datasets: dict):
+    """Trainer(device="cuda") on `base` + `over` (output under
+    DINO_TRAIN_DIR), its datasets made once per split and image size
+    (the synthetic set is the same for every such config: seed 0)."""
+    from tpupose_torch.engine.builder import Builder
+    from tpupose_torch.engine.trainer import Trainer
+
+    class CachedData(Builder):
+        def dataset(self, split="train"):
+            key = (split, tuple(self.cfg.data.image_size))
+            if key not in datasets:
+                t0 = time.perf_counter()
+                datasets[key] = super().dataset(split)
+                datasets.setdefault("seconds", {})[split] = \
+                    time.perf_counter() - t0
+            return datasets[key]
+
+    cfg = _cfg(base, {"train.output_dir": str(DINO_TRAIN_DIR),
+                      "eval.conf_threshold": str(VIDEO_CONF), **over})
+    return Trainer(cfg, builder=CachedData(cfg, "cuda"), device="cuda")
+
+
+def _recorded_steps(tr):
+    """Wrap tr.train_step: each step's metrics (device tensors) and its
+    K8 / K8b launches are appended to the returned list."""
+    from tpupose_torch.ops.cuda_attention import (flash_attention,
+                                                  flash_attention_backward)
+
+    log_ = []
+    step_fn = tr.train_step
+
+    def recording(state, batch, draws=None):
+        n8, n8b = flash_attention.launches, flash_attention_backward.launches
+        m = step_fn(state, batch, draws)
+        log_.append((m, (flash_attention.launches - n8,
+                         flash_attention_backward.launches - n8b)))
+        return m
+
+    tr.train_step = recording
+    return log_, step_fn
+
+
+def _check_step_log(label, log_, want):
+    """Every step launched `want` (K8, K8b) and every metric is finite."""
+    launches = [c for _, c in log_]
+    bad = {k for m, _ in log_ for k, v in m.items()
+           if not torch.isfinite(v).all()}
+    if any(c != want for c in launches) or bad:
+        raise AssertionError(f"phase 16 {label}: K8/K8b launches per step "
+                             f"{launches} (want {want} each), non-finite "
+                             f"metrics {sorted(bad)}")
+    return {k: [round(float(m[k]), 6) for m, _ in log_] for k in log_[0][0]}
+
+
+def _step_rate(fn, state, batch, n=8):
+    """img/s of fn(state, batch) on a device batch, and the peak device
+    memory (GiB) of one step."""
+    fn(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    for _ in range(n):
+        met = fn(state, batch)
+    torch.cuda.synchronize()
+    if not torch.isfinite(met["loss"]):
+        raise AssertionError("phase 16: timed step loss not finite")
+    return batch["images"].shape[0] * n / (time.perf_counter() - t0), peak
+
+
+def _dino_train_run(label, over, datasets, want_launches):
+    """16a/16b: Trainer on dinov3_vitpose.yaml (+ over) cut to 2 epochs,
+    then validate() with the running statistics checked, evaluate(), a
+    resume, and the step's img/s and peak memory on a device batch."""
+    from tpupose_torch.ops.cuda_attention import (flash_attention,
+                                                  flash_attention_backward)
+
+    shutil.rmtree(DINO_TRAIN_DIR, ignore_errors=True)
+    # depth cut: 2 of 100 epochs, 1 warmup epoch of 3 (the lr would still
+    # be ramping from 0 at the end)
+    over = {"train.epochs": "2", "train.warmup_epochs": "1", **over}
+    tr = _dino_trainer(DINOV3_VITPOSE, over, datasets)
+    bb0 = [p.detach().clone() for p in tr.model.backbone.parameters()]
+    log_, step_fn = _recorded_steps(tr)
+    torch.cuda.synchronize()
+    flash_attention.launches = flash_attention_backward.launches = 0
+    t0 = time.perf_counter()
+    tr.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = (flash_attention.launches, flash_attention_backward.launches)
+    n_steps = tr.state.step
+    losses = _check_step_log(label, log_, want_launches)
+    if n_steps != 2 * tr.steps_per_epoch or len(log_) != n_steps:
+        raise AssertionError(f"phase 16 {label}: {n_steps} steps")
+    same = [torch.equal(a, p) for a, p in zip(bb0,
+                                              tr.model.backbone.parameters())]
+    frozen = tr.cfg.model.freeze_backbone
+    if (frozen and not all(same)) or (not frozen and all(same)):
+        raise AssertionError(f"phase 16 {label}: backbone parameters "
+                             f"{'moved' if frozen else 'did not move'}")
+    log(f"phase 16 {label}: {n_steps} steps in {train_s:.1f} s, K8/K8b "
+        f"launches per step {want_launches}, in the run (validate's "
+        f"forwards included) {counts}; per step {json.dumps(losses)}; "
+        f"backbone {'bit-unchanged' if frozen else 'moved'}; trainer img/s "
+        f"(last epoch, host data included) {tr.img_per_s:.1f}")
+
+    model = tr.state.for_eval()
+    stats = {k: b.clone() for k, b in model.named_buffers()}
+    t0 = time.perf_counter()
+    val = tr.validate()
+    val_s = time.perf_counter() - t0
+    moved = [k for k, b in model.named_buffers() if not torch.equal(b,
+                                                                   stats[k])]
+    if not np.isfinite(val) or moved:
+        raise AssertionError(f"phase 16 {label}: validate() {val}, running "
+                             f"statistics changed {moved[:4]}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev = tr.evaluate()
+    eval_s = time.perf_counter() - t0
+    if not all(np.isfinite(v) for v in ev.values()):
+        raise AssertionError(f"phase 16 {label}: evaluate() {ev}")
+    n_valid = len(tr.valid_ds)
+    log(f"phase 16 {label}: validate() {val:.6f} in {val_s:.2f} s, running "
+        f"statistics unchanged; evaluate() (val_loss + evaluate_yolo, conf "
+        f"{VIDEO_CONF}, AP of random-init steps, not gated) "
+        f"{json.dumps({k: round(v, 6) for k, v in ev.items()})} in "
+        f"{eval_s:.2f} s ({n_valid / eval_s:.1f} img/s)")
+
+    tr2 = _dino_trainer(DINOV3_VITPOSE, over, datasets)
+    if tr2.load_checkpoint() != n_steps or tr2.state.step != n_steps:
+        raise AssertionError(f"phase 16 {label}: resume did not restore "
+                             f"the step")
+    for (k, a), b in zip(tr.model.state_dict().items(),
+                         tr2.model.state_dict().values()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"phase 16 {label}: resume: {k} differs")
+    del tr2
+    db = next(iter(tr._prefetched(tr.train_loader)))
+    ips, peak = _step_rate(step_fn, tr.state, db)
+    log(f"phase 16 {label}: resume restores step {n_steps} with equal "
+        f"parameters and statistics; train step at B=16 (device batch, "
+        f"bf16 autocast, AdamW) {ips:.1f} img/s, peak device memory "
+        f"{peak:.2f} GiB")
+    out = {"steps": n_steps, "launches": counts,
+           "launches_per_step": want_launches, "step_img_per_s": ips,
+           "peak_gib": peak, "trainer_img_per_s": tr.img_per_s,
+           "evaluate_img_per_s": n_valid / eval_s, "val_loss": val,
+           "mAP": ev.get("mAP")}
+    shutil.rmtree(DINO_TRAIN_DIR, ignore_errors=True)
+    return out, tr, step_fn, db
+
+
+def _attention_share(step_fn, state, batch):
+    """K8's and K8b's share of one unfrozen step's device time (the union
+    of the device intervals) under torch.profiler, over 3 steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step_fn(state, batch)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+          and not getattr(e, "is_user_annotation", False)]
+    iv = sorted((e.time_range.start, e.time_range.end) for e in ev)
+    busy, end = 0.0, -1.0
+    for a, b in iv:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    k8 = sum(e.time_range.end - e.time_range.start for e in ev
+             if "flash_attention_kernel" in e.name)
+    k8b = sum(e.time_range.end - e.time_range.start for e in ev
+              if "flash_attention_dkv_kernel" in e.name
+              or "flash_attention_dq_kernel" in e.name)
+    return {"busy_ms_per_step": busy / 3e3, "k8_ms_per_step": k8 / 3e3,
+            "k8b_ms_per_step": k8b / 3e3,
+            "k8_share": k8 / max(busy, 1e-9),
+            "k8b_share": k8b / max(busy, 1e-9)}
+
+
+def dino_train_phase(results, card: str):
+    """Phase 16: DINOv3Pose training and evaluation on the ViT-B/16 640x640
+    config (dinov3_vitpose.yaml, B = 16): 16a frozen and 16b unfrozen
+    training through Trainer (exact K8/K8b launches per step, finite
+    losses, the backbone unchanged or moved, validate() leaving the
+    running statistics alone, evaluate() with evaluate_yolo, resume);
+    16c one step on the K8/K8b route against plain attention; 16d a few
+    steps of v8_pose on the ViT-B backbone and of the mosaic; 16e the
+    numbers (step img/s and peak memory, trainer and evaluate() img/s,
+    the dataset's construction seconds, the attention's share of the
+    unfrozen step's device time)."""
+    from tpupose_torch.engine.builder import Builder
+    from tpupose_torch.models.backbones import vit as vit_mod
+    from tpupose_torch.models.backbones.vit import LayerScale
+    from tpupose_torch.ops.attention import fused_attention
+    from tpupose_torch.ops.cuda_attention import (flash_attention,
+                                                  flash_attention_backward)
+    from tpupose_torch.ops.preprocess import normalize_images
+
+    t_phase = time.perf_counter()
+    datasets = {}
+    runs = {}
+    # -- 16a / 16b: training through Trainer, frozen then unfrozen ---------
+    runs["frozen"], tr, _, _ = _dino_train_run("16a frozen", {}, datasets,
+                                               (12, 0))
+    del tr
+    torch.cuda.empty_cache()
+    runs["unfrozen"], tr, step_fn, db = _dino_train_run(
+        "16b unfrozen", {"model.freeze_backbone": "false"}, datasets,
+        (12, 12))
+    share = _attention_share(step_fn, tr.state, db)
+    log(f"phase 16 unfrozen step's device time under torch.profiler on "
+        f"{card}: {json.dumps(share)}")
+    runs["unfrozen"]["attention_share"] = share
+
+    # -- 16c: one step, K8/K8b against plain attention ----------------------
+    # a fresh model from the config's seed (flax's init), layer scales O(1)
+    loss_fn, cfg16 = tr.loss_fn, tr.cfg
+    targets = {k: db[k] for k in ("boxes", "classes", "keypoints",
+                                  "instance_mask")}
+    x16 = normalize_images(db["images"], scale_only=True)
+    del tr, step_fn, db
+    torch.cuda.empty_cache()
+    model = Builder(cfg16, "cuda").model()
+    g = torch.Generator().manual_seed(23)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, LayerScale):
+                m.gamma.copy_(torch.empty(m.gamma.shape).uniform_(
+                    0.2, 0.6, generator=g))
+    init = copy.deepcopy(model.state_dict())
+
+    def one_step(impl, bn_batch_stats=False, lib=False):
+        """Loss, gradients and K8/K8b launches of one step on attention
+        route `impl` ("kernel", "plain"; `lib`: SDPA, timed elsewhere),
+        the BatchNorms on their running statistics unless
+        `bn_batch_stats`."""
+        model.load_state_dict(init)
+        set_attention(model, impl)
+        vit_mod.fused_attention = sdpa_attention if lib else fused_attention
+        model.zero_grad()
+        model.train()
+        if not bn_batch_stats:
+            for m in model.modules():
+                if isinstance(m, torch.nn.BatchNorm2d):
+                    m.eval()
+        flash_attention.launches = flash_attention_backward.launches = 0
+        try:
+            loss, _ = loss_fn(model(x16), targets)
+            loss.backward()
+            torch.cuda.synchronize()
+        finally:
+            vit_mod.fused_attention = fused_attention
+            set_attention(model, "kernel")
+        counts = (flash_attention.launches, flash_attention_backward.launches)
+        return loss.item(), {n: p.grad.detach().float().clone()
+                             for n, p in model.named_parameters()
+                             if p.grad is not None}, counts
+
+    def worst(ga, gb):
+        if set(ga) != set(gb):
+            raise AssertionError("phase 16c: the routes give gradients to "
+                                 "different parameters")
+        w = {n: ((ga[n] - gb[n]).abs().max()
+                 / gb[n].abs().max().clamp_min(1e-30)).item() for n in gb}
+        n = max(w, key=w.get)
+        return w[n], n
+
+    # gated: the BatchNorms on their running statistics. In train mode
+    # each BatchNorm removes the per-channel mean of the gradient that
+    # reaches it, which leaves bf16 rounding noise in every gradient
+    # behind it: there SDPA's gradients are as far from plain attention's
+    # as K8/K8b's (printed below)
+    lk, gk, ck = one_step("kernel")
+    lp, gp, cp = one_step("plain")
+    w_k, n_k = worst(gk, gp)
+    del gk
+    readings = {}
+    for label, impl, lib in (("k8", "kernel", False), ("sdpa", "kernel", True),
+                             ("plain", "plain", False)):
+        readings[label] = one_step(impl, bn_batch_stats=True, lib=lib)[:2]
+    train_bn = {r: (abs(readings[r][0] / readings["plain"][0] - 1),
+                    *worst(readings[r][1], readings["plain"][1]))
+                for r in ("k8", "sdpa")}
+    del readings, gp
+    log(f"phase 16c DINOv3Pose ViT-B/16 640x640 bf16 step at B=16 (seeded "
+        f"weights, O(1) layer scales, unfrozen, BatchNorm on running "
+        f"statistics): loss K8/K8b {lk:.7f}, plain attention {lp:.7f} (rel "
+        f"{abs(lk / lp - 1):.3g}, tol 1e-2); every gradient vs plain: "
+        f"worst {w_k:.4g} of its max |grad| ({n_k}, tol 5e-2); launches "
+        f"K8/K8b {ck}, plain {cp}. BatchNorm on batch statistics (not "
+        f"gated): [loss rel, worst gradient rel, tensor] vs plain attention "
+        f"{json.dumps(train_bn)}")
+    if not (abs(lk / lp - 1) <= 1e-2 and w_k <= 5e-2
+            and ck == (12, 12) and cp == (0, 0)):
+        raise AssertionError("phase 16c: the K8/K8b route disagrees with "
+                             "plain attention")
+    step16c = {"loss_rel": abs(lk / lp - 1), "grad_worst_rel": w_k,
+               "launches": ck, "plain_launches": cp,
+               "bn_batch_stats_vs_plain": train_bn}
+    del model, init
+    torch.cuda.empty_cache()
+
+    # -- 16d: v8_pose on the ViT-B backbone, and the mosaic -----------------
+    for label, base, over in (("16d v8_pose", DINOV3_POSE_V8_VITB, {}),
+                              ("16d mosaic", DINOV3_VITPOSE,
+                               {"data.mosaic_prob": "0.5"})):
+        tr = _dino_trainer(base, over, datasets)
+        log_, _ = _recorded_steps(tr)
+        for i, db in enumerate(tr._prefetched(tr.train_loader)):
+            if i == 3:
+                break
+            tr.train_step(tr.state, db)
+        torch.cuda.synchronize()
+        per_step = _check_step_log(label, log_, (12, 0))
+        log(f"phase 16 {label}: 3 steps, K8/K8b launches per step (12, 0); "
+            f"per step {json.dumps(per_step)}" + (
+                "; box, dfl, kpt and vis 0: from flax's init the assigner "
+                "finds no positive (uniform DFL bins put every box 7.5 grid "
+                "units a side, where IoU^6 is below its eps)"
+                if label.endswith("v8_pose") and not any(
+                    per_step["loss_box"]) else ""))
+        runs[label.split()[1]] = per_step
+        del tr
+        torch.cuda.empty_cache()
+
+    secs = datasets.get("seconds", {})
+    log(f"phase 16 the synthetic set's construction on the host (numpy, a "
+        f"full-image Gaussian per keypoint): train (128 samples) "
+        f"{secs.get('train', float('nan')):.1f} s, valid (32) "
+        f"{secs.get('valid', float('nan')):.1f} s")
+    phase_s = time.perf_counter() - t_phase
+    results["flash_attention"]["dinov3_train"] = {
+        "launches_per_train_step": 12, "frozen": runs["frozen"],
+        "unfrozen": runs["unfrozen"], "step_vs_plain": step16c,
+        "v8_pose": runs["v8_pose"], "mosaic": runs["mosaic"],
+        "dataset_seconds": secs, "phase_seconds": phase_s}
+    results["flash_attention_bwd"]["dinov3_train"] = {
+        "launches_per_train_step": {"frozen": 0, "unfrozen": 12},
+        "launches": runs["unfrozen"]["launches"][1]}
+    log(f"phase 16 seconds: {phase_s:.1f}")
+
+
+def dino_train_main(out_path: Path) -> int:
+    """Phase 16 on its own (a child process main() starts, as phase
+    15's): its rows of the kernels JSON go to `out_path`."""
+    from tpupose_torch.ops import _build
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout
+    card = smi.strip().splitlines()[0]
+    log(f"phase 16 card: {card}")
+    _build.build_all()
+    results = {k: {} for k in ("flash_attention", "flash_attention_bwd")}
+    try:
+        dino_train_phase(results, card)
+    finally:
+        shutil.rmtree(DINO_TRAIN_DIR, ignore_errors=True)
+    out_path.write_text(json.dumps(results))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2980,6 +3394,16 @@ def main() -> int:
         results[kernel].update(row)
     phase15.unlink()
 
+    # -- phase 16: DINOv3Pose ViT-B 640x640 training and evaluation (K8 and
+    # K8b in the train step, validate, evaluate_yolo), in a child process,
+    # as phases 11-15 -------------------------------------------------------
+    phase16 = ROOT / "build" / "chip_smoke_phase16.json"
+    subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                    "--phase16", str(phase16)], check=True, timeout=600)
+    for kernel, row in json.loads(phase16.read_text()).items():
+        results[kernel].update(row)
+    phase16.unlink()
+
     # -- phase 9: device times, measured last so that no profiler session
     # precedes the timing of any other phase -----------------------------------
     k8_row = results["flash_attention"]
@@ -3098,9 +3522,10 @@ if __name__ == "__main__":
         sys.exit(phase11_main(Path(sys.argv[2]), Path(sys.argv[3])))
     if len(sys.argv) == 3 and sys.argv[1] == "--phase12":
         sys.exit(hrnet_main(Path(sys.argv[2])))
-    if len(sys.argv) == 3 and sys.argv[1] == "--phase15":
+    if len(sys.argv) == 3 and sys.argv[1] in ("--phase15", "--phase16"):
         if not torch.cuda.is_available():
             print("chip_smoke: CUDA is not available", file=sys.stderr)
             sys.exit(2)
-        sys.exit(video_main(Path(sys.argv[2])))
+        sys.exit((video_main if sys.argv[1] == "--phase15"
+                  else dino_train_main)(Path(sys.argv[2])))
     sys.exit(main())

@@ -1028,3 +1028,47 @@ def test_two_stage_step_launches_exactly(gpu):
     assert got == {"K7": 1, "K1": 1, "K2": 3, "K3": 1, "K4": 1, "K5": 0,
                    "K6": 0, "K8": 12, "K8b": 0, "warp": 0}
     assert out["keypoints"].shape == (8, 16, 17, 3)
+
+
+@pytest.mark.parametrize("frozen", [True, False], ids=["frozen", "unfrozen"])
+def test_dinov3_vit_yolo_train_step_launches_exactly(gpu, frozen):
+    """One DINOv3Pose train step (ViT-S backbone, 12 blocks, at 64x64,
+    bf16 autocast over float32 masters, pose_compute, AdamW) through
+    make_yolo_train_step: exactly 12 K8 launches, and 12 K8b where the
+    backbone trains, 0 where it is frozen; finite losses, the frozen
+    backbone bit-unchanged and the trained one moved."""
+    from tpupose_torch.configs import load_config
+    from tpupose_torch.data.synthetic import SyntheticYoloPoseDataset
+    from tpupose_torch.engine.builder import Builder
+    from tpupose_torch.engine.train_state import (TrainState,
+                                                  make_yolo_train_step)
+    from tpupose_torch.ops.cuda_attention import (flash_attention,
+                                                  flash_attention_backward)
+
+    cfg = load_config("tpupose/configs/method/dinov3_vitpose.yaml", {
+        "model.backbone": "dinov3_vit_small",
+        "model.neck_channels": [48, 96, 192],
+        "model.freeze_backbone": frozen, "data.image_size": [64, 64],
+        "train.warmup_epochs": 0})
+    b = Builder(cfg, gpu)
+    model = b.model()
+    state = TrainState(model, b.optimizer(model, 1))
+    ds = SyntheticYoloPoseDataset(4, (64, 64), 4, 7, 8)
+    batch = {k: torch.from_numpy(np.stack([ds[i][s] for i in range(4)]))
+             .to(gpu) for k, s in (("images", "image"), ("boxes", "boxes"),
+                                   ("classes", "classes"),
+                                   ("keypoints", "keypoints"),
+                                   ("instance_mask", "instance_mask"))}
+    before = [p.detach().clone() for p in model.backbone.parameters()]
+    step = make_yolo_train_step(b.loss())
+    n0, b0 = flash_attention.launches, flash_attention_backward.launches
+    met = step(state, batch)
+    torch.cuda.synchronize()
+    assert flash_attention.launches - n0 == 12
+    assert flash_attention_backward.launches - b0 == (0 if frozen else 12)
+    assert set(met) == {"loss", "grad_norm", "loss_cls", "loss_kpt",
+                        "loss_vis"}
+    assert all(torch.isfinite(v).all() for v in met.values())
+    same = [torch.equal(a, p) for a, p in zip(before,
+                                              model.backbone.parameters())]
+    assert all(same) if frozen else not all(same)

@@ -6,10 +6,14 @@ parse args -> merge YAML -> Trainer.train().
         data.device_affine=true [--device cuda] [key=value ...]
     python -m tpupose_torch.cli.train \
         --cfg tpupose/configs/method/vitpose_s.yaml [train.remat=true]
+    python -m tpupose_torch.cli.train \
+        --cfg tpupose/configs/method/dinov3_vitpose.yaml \
+        [model.freeze_backbone=false] [data.mosaic_prob=0.5]
 
 `--device` defaults to cuda (raises where CUDA is absent); `--device cpu`
 trains on the CPU. `--test` runs the loss-only `validate()`, then the
-metric `evaluate()` (PCK, MPJPE and COCO OKS-AP by default, eval.metrics),
+metric `evaluate()` (heatmap family: PCK, MPJPE and COCO OKS-AP by
+default, eval.metrics; DINOv3Pose: val_loss and evaluate_yolo's OKS-AP),
 and prints both.
 """
 

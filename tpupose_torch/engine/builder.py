@@ -1,9 +1,10 @@
 """Builder: config -> objects (counterpart of tpupose/engine/builder.py).
 
 Ported: `model()` (simple_baseline, hrnet, vitpose, dinov3_pose),
-`loss()` (joints_mse, joints_mse_weighted), `lr_scheduler()`,
-`optimizer()` (head/base lr split, frozen backbone, global-norm
-clipping), `dataset()` (synthetic, coco) and `dataloader()`. Any other
+`loss()` (joints_mse, joints_mse_weighted, and DINOv3Pose's
+pose_compute and v8_pose), `lr_scheduler()`, `optimizer()` (head/base lr
+split, frozen backbone, global-norm clipping), `dataset()` (synthetic,
+synthetic_yolo, coco) and `dataloader()`. Any other
 name raises ValueError naming the ROADMAP item that ports it. The JAX
 package's `set_device` (a device mesh) has no counterpart yet: the port
 trains on one device.
@@ -53,7 +54,7 @@ class Builder:
         m = self.cfg.model
         if m.name not in MODELS:
             raise _unported("model", m.name, _MODEL_ITEMS.get(
-                m.name, "Queue A items 8-10"))
+                m.name, "Queue A items 9-10"))
         if m.pretrained:
             raise _unported("model.pretrained", m.pretrained,
                             "Queue A item 12")
@@ -112,6 +113,24 @@ class Builder:
                                                   joints_mse_weighted_loss)
 
         name = self.cfg.loss.name
+        lc, m = self.cfg.loss, self.cfg.model
+        if name == "pose_compute":
+            from tpupose_torch.losses.pose_loss import ComputeLoss
+
+            return ComputeLoss(num_keypoints=m.num_keypoints,
+                               num_classes=m.num_classes,
+                               strides=tuple(m.strides),
+                               kpt_loss_type=lc.kpt_loss_type,
+                               cls_weight=lc.cls_weight,
+                               kpt_weight=lc.kpt_weight,
+                               vis_weight=lc.vis_weight)
+        if name == "v8_pose":
+            from tpupose_torch.losses.v8 import v8PoseLoss
+
+            return v8PoseLoss(num_keypoints=m.num_keypoints,
+                              num_classes=m.num_classes,
+                              strides=tuple(m.strides),
+                              reg_max=self._reg_max())
         if name == "joints_mse":
             utw = self.cfg.loss.use_target_weight
 
@@ -121,7 +140,7 @@ class Builder:
             return fn
         if name == "joints_mse_weighted":
             return joints_mse_weighted_loss
-        raise _unported("loss", name, "Queue A items 8-9")
+        raise _unported("loss", name, "Queue A item 9")
 
     # -- optimizer + schedule --------------------------------------------------
     def lr_scheduler(self, steps_per_epoch: int):
@@ -157,6 +176,16 @@ class Builder:
             from tpupose_torch.data.coco import CocoTopDownDataset
 
             return CocoTopDownDataset.from_config(self.cfg, split)
+        if d.name == "synthetic_yolo":
+            from tpupose_torch.data.synthetic import SyntheticYoloPoseDataset
+
+            # both splits on the dataset's default seed 0, as in JAX
+            return SyntheticYoloPoseDataset(
+                num_samples=128 if split == "train" else 32,
+                image_size=tuple(d.image_size),
+                num_keypoints=self.cfg.model.num_keypoints,
+                num_classes=self.cfg.model.num_classes,
+                max_instances=d.max_instances)
         if d.name != "synthetic":
             raise _unported("dataset", d.name, "Queue A item 12")
         from tpupose_torch.data.synthetic import SyntheticTopDownDataset

@@ -1,6 +1,6 @@
-"""Train state and the heatmap train/eval steps (counterpart of
+"""Train state and the train/eval steps (counterpart of
 tpupose/engine/train_state.py: TrainState, make_heatmap_train_step,
-make_heatmap_eval_step).
+make_yolo_train_step, make_heatmap_eval_step).
 
 The JAX step is one compiled program; here it is eager PyTorch on the
 model's device. One step: random draws -> affine augmentation (the warp
@@ -16,6 +16,12 @@ port draws from a torch.Generator on the batch's device seeded from
 (seed, step), so a resumed run draws the same values. Threefry bits
 cannot be reproduced by a torch.Generator, so the step also takes the
 draws as an argument (the parity tests hand it the JAX package's).
+
+The yolo step (DINOv3Pose): optional mosaic (ops/mosaic.py) -> /255 ->
+train-mode forward (the neck's BatchNorm statistics update) -> loss
+(ComputeLoss or v8PoseLoss) -> backward -> clip + the grouped update ->
+EMA; it returns the loss, grad_norm, each loss part as loss_<part> and,
+with mosaic, the mosaic's dropped instances, all device tensors.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 
 from tpupose_torch.ops.affine import draw_affine_augment, random_affine_augment
 from tpupose_torch.ops.heatmap import gaussian_heatmaps
+from tpupose_torch.ops.mosaic import draw_mosaic, mosaic_augment_normalized
 from tpupose_torch.ops.preprocess import (IMAGENET_MEAN, IMAGENET_STD,
                                           color_jitter, draw_color_jitter,
                                           normalize_images)
@@ -162,6 +169,58 @@ def make_heatmap_train_step(loss_fn, color_jitter_strength: float = 0.0,
         loss.backward()
         grad_norm = state.apply_gradients()
         return {"loss": loss.detach(), "grad_norm": grad_norm}
+
+    train_step.draws_for = draws_for
+    return train_step
+
+
+YOLO_TARGETS = ("boxes", "classes", "keypoints", "instance_mask")
+
+
+def make_yolo_train_step(loss_fn, mosaic_prob: float = 0.0,
+                         mosaic_seed: int = 0):
+    """The single-stage (YOLO-pose) train step, `step(state, batch,
+    draws=None)`.
+
+    batch: {"images" uint8 NHWC, "boxes" (B, M, 4) normalized cxcywh,
+    "classes" (B, M), "keypoints" (B, M, K, 3) normalized, "instance_mask"
+    (B, M)}. loss_fn: (per-scale raw maps, targets) -> (total, parts).
+    mosaic_prob > 0 runs the 4-image mosaic per image with that
+    probability, labels moved with it; draws: {"mosaic": draw_mosaic's},
+    by default `step.draws_for(state.step, B, device)`. Updates `state` in
+    place and returns {"loss", "grad_norm", "loss_<part>"...[,
+    "mosaic_dropped"]} as device tensors."""
+
+    def draws_for(step: int, batch: int, device) -> dict:
+        if mosaic_prob <= 0:
+            return {}
+        g = torch.Generator(device=device)
+        g.manual_seed(step_seed(mosaic_seed, step))
+        return {"mosaic": draw_mosaic(g, batch)}
+
+    def train_step(state: TrainState, batch: dict, draws: dict = None):
+        images = batch["images"]
+        targets = {k: batch[k] for k in YOLO_TARGETS}
+        extra = {}
+        if mosaic_prob > 0:
+            if draws is None:
+                draws = draws_for(state.step, images.shape[0], images.device)
+            (images, targets["boxes"], targets["classes"],
+             targets["keypoints"], targets["instance_mask"],
+             extra["mosaic_dropped"]) = mosaic_augment_normalized(
+                images, targets["boxes"], targets["classes"],
+                targets["keypoints"], targets["instance_mask"],
+                draws["mosaic"], prob=mosaic_prob)
+        imgs = normalize_images(images, scale_only=True)
+        model = state.model.train()
+        loss, parts = loss_fn(model(imgs), targets)
+        state.optimizer.zero_grad()
+        loss.backward()
+        grad_norm = state.apply_gradients()
+        metrics = {"loss": loss.detach(), "grad_norm": grad_norm}
+        metrics.update({f"loss_{k}": v.detach() for k, v in parts.items()})
+        metrics.update(extra)
+        return metrics
 
     train_step.draws_for = draws_for
     return train_step

@@ -1,29 +1,34 @@
-"""Trainer: the epoch loop for the heatmap family, SimpleBaseline, HRNet
-and ViTPose (counterpart of tpupose/engine/trainer.py).
+"""Trainer: the epoch loop for the heatmap family (SimpleBaseline, HRNet,
+ViTPose) and the single-stage YOLO-pose family (DINOv3Pose)
+(counterpart of tpupose/engine/trainer.py).
 
 Ported: construction (builder, datasets and loaders, model, optimizer
 with per-group schedules, EMA, the train and eval steps, log file,
 tensorboard scalars, checkpoints), device prefetch of prepared batches,
 `iter_one_epoch` (img/s over the epoch, host sync only at the logged
 steps), loss-only `validate` (pad-mask weighting, EMA weights), metric
-`evaluate` (flip test + DARK + back-projection + the metrics of
-`eval.metrics` over the valid set, `eval.dump_results`; in the epoch
-loop with `eval.run_metrics`; int8 evaluation with `eval.int8`, the PTQ
-intercept, and `eval.int8_engine`, cli.serve's int8 engine (the R50's
-CudaServingEngine, else Int8Engine), both calibrated on the first
-validation batch against the current eval weights at every
-call), `train` with the SIGTERM/SIGINT checkpoint guard,
-`save_checkpoint` and `load_checkpoint`. Not ported yet (ROADMAP Queue
-A): the other families, distillation, pretrained weights, the device
-mesh and detection-box evaluation (`eval.det_boxes`).
+`evaluate` (heatmap family: flip test + DARK + back-projection + the
+metrics of `eval.metrics` over the valid set, `eval.dump_results`; in
+the epoch loop with `eval.run_metrics`; int8 evaluation with
+`eval.int8`, the PTQ intercept, and `eval.int8_engine`, cli.serve's
+int8 engine (the R50's CudaServingEngine, else Int8Engine), both
+calibrated on the first validation batch against the current eval
+weights at every call; yolo family: `val_loss` and `evaluate_yolo`,
+YoloPosePredictor + OKS-NMS + OKS-AP), `train` with the SIGTERM/SIGINT
+checkpoint guard, `save_checkpoint` and `load_checkpoint`. Not ported
+yet (ROADMAP Queue A): the other families, distillation, pretrained
+weights, the device mesh and detection-box evaluation
+(`eval.det_boxes`).
 
 Runs on `device` (default "cuda"; raises where CUDA is absent). On the
 card a ViTPose step runs the flash-attention kernels K8 (forward) and K8b
 (backward) in every block; `train.remat` recomputes each block, K8
-included, in the backward. `evaluate` of a SimpleBaseline-R50 at
-256x192 runs the stem (K1), layer1 (K2) and block2_0 (K3) kernels on
-weights folded from the current (EMA where tracked) parameters at each
-call, and the DARK decode kernel (K4).
+included, in the backward. A DINOv3Pose step on a ViT backbone runs K8
+in every block, and K8b too where `model.freeze_backbone` is off (a
+frozen backbone runs without a graph). `evaluate` of a
+SimpleBaseline-R50 at 256x192 runs the stem (K1), layer1 (K2) and
+block2_0 (K3) kernels on weights folded from the current (EMA where
+tracked) parameters at each call, and the DARK decode kernel (K4).
 """
 
 from __future__ import annotations
@@ -40,10 +45,13 @@ from tpupose_torch._device import resolve_device
 from tpupose_torch.data.loader import prefetch_to_device, to_device
 from tpupose_torch.engine.builder import Builder
 from tpupose_torch.engine.checkpoint import CheckpointManager, restore_path
-from tpupose_torch.engine.train_state import (TrainState,
+from tpupose_torch.engine.train_state import (YOLO_TARGETS, TrainState,
                                               make_heatmap_eval_step,
-                                              make_heatmap_train_step)
+                                              make_heatmap_train_step,
+                                              make_yolo_train_step)
+from tpupose_torch.models.remat import frozen_batch_stats
 from tpupose_torch.ops.heatmap import gaussian_heatmaps
+from tpupose_torch.ops.preprocess import normalize_images
 from tpupose_torch.utils.logging import FileLogger, printM, printS, printT, printW
 from tpupose_torch.utils.meters import MetricDict
 from tpupose_torch.utils.seed import set_seed
@@ -60,11 +68,14 @@ class Trainer:
                              "to tpupose_torch yet (ROADMAP Queue A item 5)")
         if cfg.eval.run_metrics:
             self._check_eval_options()
-        if cfg.loss.name not in ("joints_mse", "joints_mse_weighted"):
-            raise ValueError(f"the port trains the heatmap family only; loss "
-                             f"{cfg.loss.name!r} waits (ROADMAP Queue A "
-                             f"items 8-9)")
-        self.family = "heatmap"
+        if cfg.loss.name in ("pose_compute", "v8_pose"):
+            self.family = "yolo"
+        elif cfg.loss.name in ("joints_mse", "joints_mse_weighted"):
+            self.family = "heatmap"
+        else:
+            raise ValueError(f"the port trains the heatmap and yolo families; "
+                             f"loss {cfg.loss.name!r} waits (ROADMAP Queue A "
+                             f"item 9)")
         set_seed(cfg.train.seed, cfg.train.deterministic)
 
         self.model = self.builder.model()
@@ -78,16 +89,21 @@ class Trainer:
         self.state = TrainState(self.model, opt,
                                 ema_decay=cfg.train.ema_decay)
         self.loss_fn = self.builder.loss()
-        dev_aff = cfg.data.device_affine
-        self.train_step = make_heatmap_train_step(
-            self.loss_fn,
-            color_jitter_strength=cfg.data.color_jitter,
-            jitter_seed=cfg.train.seed,
-            heatmap_size=tuple(cfg.model.heatmap_size),
-            sigma=cfg.data.sigma,
-            affine_rotation=cfg.data.rotation_factor if dev_aff else 0.0,
-            affine_scale=cfg.data.scale_factor if dev_aff else 0.0,
-            udp=cfg.data.udp)
+        if self.family == "yolo":
+            self.train_step = make_yolo_train_step(
+                self.loss_fn, mosaic_prob=cfg.data.mosaic_prob,
+                mosaic_seed=cfg.train.seed)
+        else:
+            dev_aff = cfg.data.device_affine
+            self.train_step = make_heatmap_train_step(
+                self.loss_fn,
+                color_jitter_strength=cfg.data.color_jitter,
+                jitter_seed=cfg.train.seed,
+                heatmap_size=tuple(cfg.model.heatmap_size),
+                sigma=cfg.data.sigma,
+                affine_rotation=cfg.data.rotation_factor if dev_aff else 0.0,
+                affine_scale=cfg.data.scale_factor if dev_aff else 0.0,
+                udp=cfg.data.udp)
         self.eval_step = make_heatmap_eval_step()
         self.img_per_s = float("nan")       # the last epoch's figure
         self._evaluator = None              # built by the first evaluate()
@@ -103,20 +119,26 @@ class Trainer:
             self.load_checkpoint(cfg.model.checkpoint)
 
     # ------------------------------------------------------------------
+    @property
+    def _batch_keys(self):
+        if self.family == "yolo":
+            return ("images",) + YOLO_TARGETS
+        return ("images", "joints", "visibility")
+
     def _prefetched(self, loader, depth: int = 2):
         """Prepared batches on the device, `depth` ahead of the step
         (pinned host memory, non_blocking copies)."""
         yield from prefetch_to_device(
-            ({k: b[k] for k in ("images", "joints", "visibility")}
-             for b in loader), self.device, depth)
+            ({k: b[k] for k in self._batch_keys} for b in loader),
+            self.device, depth)
 
     def _prepare_batch(self, batch, for_eval: bool = False):
-        """Host batch -> device batch. Training ships images + joints (the
-        targets are rendered in the step); eval renders the targets
-        here."""
-        dev = to_device({k: batch[k] for k in ("images", "joints",
-                                               "visibility")}, self.device)
-        if not for_eval:
+        """Host batch -> device batch. The heatmap family ships images +
+        joints (the targets are rendered in the step), and eval renders
+        the targets here; the yolo family ships images and its padded
+        targets."""
+        dev = to_device({k: batch[k] for k in self._batch_keys}, self.device)
+        if not for_eval or self.family == "yolo":
             return dev
         target, tw = gaussian_heatmaps(dev["joints"], dev["visibility"],
                                        tuple(self.cfg.model.heatmap_size),
@@ -158,21 +180,48 @@ class Trainer:
         return meters["loss"].avg if "loss" in meters._meters \
             else float("inf")
 
+    @torch.no_grad()
+    def _yolo_val_loss(self, model, db):
+        """The yolo family's val loss: a train-mode forward (BatchNorm on
+        the batch's statistics, the head's raw per-scale maps), as JAX's
+        val step runs it, with the running statistics left as they are."""
+        was_training = model.training
+        model.train()
+        try:
+            with frozen_batch_stats():
+                preds = model(normalize_images(db["images"], scale_only=True))
+        finally:
+            model.train(was_training)
+        total, _ = self.loss_fn(preds, {k: db[k] for k in
+                                        YOLO_TARGETS + ("sample_mask",)})
+        return total
+
     def validate(self) -> float:
         """Loss-only validation on the eval weights (the EMA when
         tracked). The padded tail batch's duplicate rows get zero target
-        weight, and batches are combined weighted by their real rows."""
+        weight (the yolo family: zero instance mask, and zero sample mask
+        for the class term, which scores every cell), and batches are
+        combined weighted by their real rows."""
         total, n = 0.0, 0
         model = self.state.for_eval()
         for batch in self.valid_loader:
             pm = batch.get("pad_mask")
             db = self._prepare_batch(batch, for_eval=True)
             n_real = int(pm.sum()) if pm is not None else len(batch["images"])
-            if pm is not None and not bool(pm.all()):
-                m = torch.from_numpy(pm.astype(np.float32)).to(self.device)
-                db["target_weight"] = db["target_weight"] * m[:, None]
-            preds = self.eval_step(model, db["images"])
-            loss = self.loss_fn(preds, db["target"], db["target_weight"])
+            m = torch.from_numpy(
+                pm.astype(np.float32) if pm is not None
+                else np.ones(len(batch["images"]), np.float32)).to(self.device)
+            padded = pm is not None and not bool(pm.all())
+            if self.family == "yolo":
+                db["sample_mask"] = m
+                if padded:
+                    db["instance_mask"] = db["instance_mask"] * m[:, None]
+                loss = self._yolo_val_loss(model, db)
+            else:
+                if padded:
+                    db["target_weight"] = db["target_weight"] * m[:, None]
+                preds = self.eval_step(model, db["images"])
+                loss = self.loss_fn(preds, db["target"], db["target_weight"])
             total += float(loss) * n_real
             n += n_real
         if n == 0:
@@ -279,16 +328,78 @@ class Trainer:
             yield batch
 
     def evaluate(self) -> dict:
-        """Metric evaluation for the heatmap family: flip test + DARK +
-        back-projection + the metrics of eval.metrics (PCK, MPJPE, COCO
-        OKS-AP, ...) over the valid set, on the eval weights; with
-        eval.dump_results also the COCO keypoint-results JSON."""
+        """Metric evaluation on the eval weights. Heatmap family: flip
+        test + DARK + back-projection + the metrics of eval.metrics (PCK,
+        MPJPE, COCO OKS-AP, ...) over the valid set; with
+        eval.dump_results also the COCO keypoint-results JSON. Yolo
+        family: `val_loss` and `evaluate_yolo`'s metrics."""
         self._check_eval_options()
-        ev = self._get_evaluator()
-        out = ev.run(self._eval_batches(), self._build_eval_metrics(),
-                     results_path=self.cfg.eval.dump_results or None)
+        if self.family == "yolo":
+            out = {"val_loss": self.validate()}
+            out.update(self.evaluate_yolo())
+        else:
+            ev = self._get_evaluator()
+            out = ev.run(self._eval_batches(), self._build_eval_metrics(),
+                         results_path=self.cfg.eval.dump_results or None)
         printM("eval: " + " ".join(f"{k}={v:.4f}" for k, v in out.items()))
         return out
+
+    def evaluate_yolo(self) -> dict:
+        """COCO keypoint mAP for the single-stage family: YoloPosePredictor
+        (forward + decode + NMS on the device) on the eval weights over the
+        valid set, OKS-NMS per image (eval.det_nms "oks"), OKS-AP over the
+        model's classes."""
+        from tpupose_torch.engine.predictor import YoloPosePredictor
+        from tpupose_torch.metrics.oks_ap import OKSAP
+        from tpupose_torch.ops.oks_nms import oks_nms
+
+        cfg, ecfg = self.cfg, self.cfg.eval
+        H, W = cfg.data.image_size
+        nc = cfg.model.num_classes
+        pred = YoloPosePredictor(
+            self.state.for_eval(), num_classes=nc,
+            num_keypoints=cfg.model.num_keypoints,
+            conf_threshold=ecfg.conf_threshold,
+            iou_threshold=ecfg.iou_threshold,
+            max_detections=ecfg.max_detections,
+            has_box_branch=(cfg.model.reg_max > 0
+                            or cfg.loss.name == "v8_pose"),
+            device=self.device)
+        ap = OKSAP(num_classes=nc)
+        wh = np.array([W, H], np.float32)
+        for batch in self.valid_loader:
+            pm = batch.get("pad_mask")
+            if pm is None:
+                pm = np.ones(len(batch["images"]), bool)
+            det = pred(batch["images"])
+            gt_kpts = np.asarray(batch["keypoints"])     # normalized
+            gt_boxes = np.asarray(batch["boxes"])        # normalized cxcywh
+            gt_cls = np.asarray(batch["classes"])
+            imask = np.asarray(batch["instance_mask"]) > 0
+            for i in np.flatnonzero(pm):
+                keep = np.where(det["valid"][i] > 0)[0]
+                pk = det["keypoints"][i][..., :2]
+                kv = det["keypoints"][i][..., 2]
+                ps = det["scores"][i]
+                pb = det["boxes"][i]
+                pa = (np.maximum(pb[:, 2] - pb[:, 0], 0.0)
+                      * np.maximum(pb[:, 3] - pb[:, 1], 0.0))
+                if keep.size and ecfg.det_nms == "oks":
+                    # box NMS ran on the device; OKS-NMS removes same-pose
+                    # duplicates that survive box IoU
+                    keep = keep[oks_nms(pk[keep], ps[keep], pa[keep],
+                                        threshold=ecfg.det_nms_threshold,
+                                        kscores=kv[keep],
+                                        vis_threshold=ecfg.det_vis_threshold)]
+                gt_area = (gt_boxes[i, :, 2] * W) * (gt_boxes[i, :, 3] * H)
+                ap.update(pk[keep], ps[keep], gt_kpts[i, :, :, :2] * wh,
+                          gt_kpts[i, :, :, 2], gt_area,
+                          pred_cls=det["classes"][i][keep],
+                          gt_cls=gt_cls[i], gt_valid=imask[i],
+                          pred_area=pa[keep])
+        res = ap.compute()
+        return {k: float(v) for k, v in res.items()
+                if isinstance(v, (int, float, np.floating))}
 
     def train(self):
         start_epoch = self.state.step // self.steps_per_epoch
@@ -341,7 +452,7 @@ class Trainer:
                 printM(f"epoch {epoch}: val_loss={val_loss:.5f}")
                 self.file_log.log(f"epoch {epoch}: val_loss={val_loss:.5f}")
                 self.tb.add_scalar("val/loss", val_loss, self.state.step)
-                if self.cfg.eval.run_metrics:
+                if self.family == "heatmap" and self.cfg.eval.run_metrics:
                     metrics = self.evaluate()
                     self.file_log.log(
                         f"epoch {epoch}: "
