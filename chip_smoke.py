@@ -179,7 +179,9 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
   16. (after 15, in a fourth child process; `python3 chip_smoke.py
      --phase16 <out.json>` runs it alone) DINOv3Pose training and
      evaluation on dinov3_vitpose.yaml (ViT-B/16 640x640, B=16, bf16
-     autocast, AdamW) cut to 2 of 100 epochs: 16a frozen and 16b
+     autocast, AdamW) cut to 2 of 100 epochs on 64 train and 16 valid
+     synthetic_yolo samples (the Builder makes 128 / 32): 16a frozen
+     and 16b
      unfrozen through Trainer, every step exactly 12 K8 and 0 / 12 K8b
      launches, finite losses and parts, the backbone bit-unchanged /
      moved, validate() finite with the running statistics unchanged,
@@ -194,6 +196,28 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
      steps of v8_pose on the
      ViT-B backbone and of the mosaic (data.mosaic_prob 0.5); the
      synthetic set's construction seconds and the phase's seconds;
+  17. (after 16, in a fifth child process; `python3 chip_smoke.py
+     --phase17 <out.json>` runs it alone) the remaining model families
+     at their yamls' full width through Trainer, each cut to 2 epochs
+     (1 warmup epoch): 17a SimCC-R50 256x192 (simcc_r50.yaml, B=64,
+     data.device_affine=true): K7's launches equal the train steps
+     exactly; 17b DeepPose-R50 256x256 K=16 (deep_pose.yaml, RMSprop,
+     B=64; 4 epochs, see families_phase) with loss coord_mse and with
+     rle: no K7; each: every step's
+     metrics finite, the last epoch's mean loss below the first's,
+     evaluate() finite (flip for SimCC; val_loss, PCK, PCKh, MPJPE, AUC,
+     EPE for DeepPose), a fresh Trainer resumes to the same step with
+     equal parameters, the step's img/s and peak memory on a device
+     batch; 17c bottom-up HRNet-W32 512x512 (bottom_up_w32.yaml, B=16, 16
+     train and 8 valid samples of the synthetic_yolo set): finite loss
+     parts, evaluate_bottom_up finite, resume, step img/s, and decode_ae's
+     host ms, device ms and device kernels for one valid batch; 17d
+     cli.test's run_inference over 4 seeded 480x640 JPEGs under build/:
+     the DINOv3Pose ViT-B 640 config (conf 0.005) with exactly 12 K8
+     launches an image, the bottom-up config with none, the DINOv3Pose
+     config with eval.int8 (calibrated on the first image); 4 annotated
+     files each (under the inputs' names, as JAX writes them); the
+     phase's seconds;
   9. device times under torch.profiler, last: K8, its plain version and
      SDPA at both shapes (their `ms`, `plain_ms`, `library_ms`: a K8
      launch is shorter than its wrapper's Python, so CUDA events around
@@ -208,13 +232,13 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
   6. a JSON line of every kernel's numbers, then the last line
      {"ok": true, "device": {...}}.
 
-Phases run in the order 1-5, 7, 3d, 3e, 4c, 8, 10, 11, 12-14, 15, 16, 9,
-6. Exits
+Phases run in the order 1-5, 7, 3d, 3e, 4c, 8, 10, 11, 12-14, 15, 16, 17,
+9, 6. Exits
 non-zero without printing a result where CUDA is unavailable. Needs one
 card; imports nothing of JAX. Writes only under build/ of the checkout
 (the kernels, the native host-IO library, the phase-7, phase-10,
-phase-12 and phase-16 checkpoints and the phase-11, phase-12 and
-phase-15 data, removed at the end). Each phase from 12 on prints its
+phase-12, phase-16 and phase-17 checkpoints and the phase-11, phase-12,
+phase-15 and phase-17 data, removed at the end). Each phase from 12 on prints its
 seconds.
 """
 
@@ -2271,12 +2295,17 @@ DINOV3_POSE_V8_VITB = {
     "lr_scheduler": {"name": "cosine"},
 }
 DINO_TRAIN_DIR = ROOT / "build" / "chip_smoke_dino_train"
+# depth cut: 64 train and 16 valid samples of the synthetic_yolo set (the
+# Builder's 128 / 32; its host build is ~0.6 s a sample at 640)
+DINO_SAMPLES = {"train": 64, "valid": 16}
 
 
 def _dino_trainer(base: dict, over: dict, datasets: dict):
     """Trainer(device="cuda") on `base` + `over` (output under
-    DINO_TRAIN_DIR), its datasets made once per split and image size
-    (the synthetic set is the same for every such config: seed 0)."""
+    DINO_TRAIN_DIR), its datasets (DINO_SAMPLES of the synthetic_yolo
+    set) made once per split and image size (the synthetic set is the
+    same for every such config: seed 0)."""
+    from tpupose_torch.data.synthetic import SyntheticYoloPoseDataset
     from tpupose_torch.engine.builder import Builder
     from tpupose_torch.engine.trainer import Trainer
 
@@ -2285,7 +2314,13 @@ def _dino_trainer(base: dict, over: dict, datasets: dict):
             key = (split, tuple(self.cfg.data.image_size))
             if key not in datasets:
                 t0 = time.perf_counter()
-                datasets[key] = super().dataset(split)
+                d, m = self.cfg.data, self.cfg.model
+                datasets[key] = SyntheticYoloPoseDataset(
+                    num_samples=DINO_SAMPLES[split],
+                    image_size=tuple(d.image_size),
+                    num_keypoints=m.num_keypoints,
+                    num_classes=m.num_classes,
+                    max_instances=d.max_instances)
                 datasets.setdefault("seconds", {})[split] = \
                     time.perf_counter() - t0
             return datasets[key]
@@ -2295,20 +2330,22 @@ def _dino_trainer(base: dict, over: dict, datasets: dict):
     return Trainer(cfg, builder=CachedData(cfg, "cuda"), device="cuda")
 
 
-def _recorded_steps(tr):
-    """Wrap tr.train_step: each step's metrics (device tensors) and its
-    K8 / K8b launches are appended to the returned list."""
+def _recorded_steps(tr, wrappers=None):
+    """Wrap tr.train_step: each step's metrics (device tensors) and the
+    launches of each kernel wrapper in `wrappers` (default K8, K8b) are
+    appended to the returned list."""
     from tpupose_torch.ops.cuda_attention import (flash_attention,
                                                   flash_attention_backward)
 
+    wrappers = wrappers or (flash_attention, flash_attention_backward)
     log_ = []
     step_fn = tr.train_step
 
     def recording(state, batch, draws=None):
-        n8, n8b = flash_attention.launches, flash_attention_backward.launches
+        before = [w.launches for w in wrappers]
         m = step_fn(state, batch, draws)
-        log_.append((m, (flash_attention.launches - n8,
-                         flash_attention_backward.launches - n8b)))
+        log_.append((m, tuple(w.launches - n
+                              for w, n in zip(wrappers, before))))
         return m
 
     tr.train_step = recording
@@ -2341,7 +2378,7 @@ def _step_rate(fn, state, batch, n=8):
         met = fn(state, batch)
     torch.cuda.synchronize()
     if not torch.isfinite(met["loss"]):
-        raise AssertionError("phase 16: timed step loss not finite")
+        raise AssertionError("timed step loss not finite")
     return batch["images"].shape[0] * n / (time.perf_counter() - t0), peak
 
 
@@ -2607,8 +2644,10 @@ def dino_train_phase(results, card: str):
 
     secs = datasets.get("seconds", {})
     log(f"phase 16 the synthetic set's construction on the host (numpy, a "
-        f"full-image Gaussian per keypoint): train (128 samples) "
-        f"{secs.get('train', float('nan')):.1f} s, valid (32) "
+        f"full-image Gaussian per keypoint): train "
+        f"({DINO_SAMPLES['train']} samples) "
+        f"{secs.get('train', float('nan')):.1f} s, valid "
+        f"({DINO_SAMPLES['valid']}) "
         f"{secs.get('valid', float('nan')):.1f} s")
     phase_s = time.perf_counter() - t_phase
     results["flash_attention"]["dinov3_train"] = {
@@ -2640,6 +2679,315 @@ def dino_train_main(out_path: Path) -> int:
         dino_train_phase(results, card)
     finally:
         shutil.rmtree(DINO_TRAIN_DIR, ignore_errors=True)
+    out_path.write_text(json.dumps(results))
+    return 0
+
+
+# tpupose/configs/method/simcc_r50.yaml, deep_pose.yaml and
+# bottom_up_w32.yaml, written out as phase 17 runs them
+SIMCC_R50 = {
+    "model": {"name": "simcc", "backbone": "resnet50", "num_keypoints": 17,
+              "split_ratio": 2.0, "heatmap_size": [512, 384],
+              "freeze_backbone": False},
+    "data": {"name": "synthetic", "image_size": [256, 192],
+             "simcc_sigma": 6.0},
+    "train": {"batch_size": 64, "epochs": 140, "warmup_epochs": 1},
+    "loss": {"name": "simcc_kl"},
+    "optimizer": {"name": "adam", "lr": 1.0e-3},
+    "lr_scheduler": {"name": "multistep", "milestones": [90, 120],
+                     "gamma": 0.1},
+    "eval": {"flip_test": True},
+}
+DEEP_POSE = {
+    "model": {"name": "deeppose", "backbone": "resnet50",
+              "num_keypoints": 16, "freeze_backbone": False},
+    "data": {"name": "synthetic", "image_size": [256, 256]},
+    "train": {"batch_size": 64, "epochs": 100},
+    "loss": {"name": "coord_mse"},
+    "optimizer": {"name": "rmsprop", "lr": 5.0e-4},
+    "lr_scheduler": {"name": "step", "step_size": 30, "gamma": 0.3},
+}
+BOTTOM_UP_W32 = {
+    "model": {"name": "bottom_up", "backbone": "hrnet_w32",
+              "num_keypoints": 17, "heatmap_size": [128, 128]},
+    "data": {"name": "synthetic_yolo", "image_size": [512, 512],
+             "max_instances": 30, "sigma": 2.0},
+    "train": {"batch_size": 16, "epochs": 300, "warmup_epochs": 3},
+    "loss": {"name": "ae", "ae_tag_sigma": 1.0, "ae_pull_weight": 1.0e-3,
+             "ae_push_weight": 1.0e-3},
+    "optimizer": {"name": "adamw", "lr": 1.5e-3},
+    "lr_scheduler": {"name": "cosine"},
+    "eval": {"ae_score_threshold": 0.1, "ae_tag_threshold": 1.0,
+             "metrics": ["oks_ap"]},
+}
+FAMILIES_DIR = ROOT / "build" / "chip_smoke_families"
+# the synthetic_yolo set's host build is ~2.5 s a sample at 512 with 30
+# instances: the bottom-up run takes 16 train and 8 valid samples of it
+BU_SAMPLES = {"train": 16, "valid": 8}
+
+
+_FAMILY_DATA: dict = {}
+
+
+def _families_trainer(base: dict, over: dict, samples=None):
+    """Trainer(device="cuda") on `base` + `over` (output under
+    FAMILIES_DIR); `samples` {split: n} takes n samples of the builder's
+    synthetic_yolo set of that split (the set itself as the Builder makes
+    it), made once per split for the phase (the resume's Trainer reuses
+    them)."""
+    from tpupose_torch.data.synthetic import SyntheticYoloPoseDataset
+    from tpupose_torch.engine.builder import Builder
+    from tpupose_torch.engine.trainer import Trainer
+
+    class Sized(Builder):
+        def dataset(self, split="train"):
+            if samples is None:
+                return super().dataset(split)
+            d, m = self.cfg.data, self.cfg.model
+            key = (split, samples[split], tuple(d.image_size))
+            if key not in _FAMILY_DATA:
+                t0 = time.perf_counter()
+                _FAMILY_DATA[key] = SyntheticYoloPoseDataset(
+                    num_samples=samples[split],
+                    image_size=tuple(d.image_size),
+                    num_keypoints=m.num_keypoints,
+                    num_classes=m.num_classes,
+                    max_instances=d.max_instances)
+                _FAMILY_DATA.setdefault("seconds", {})[split] = \
+                    time.perf_counter() - t0
+            return _FAMILY_DATA[key]
+
+    cfg = _cfg(base, {"train.output_dir": str(FAMILIES_DIR), **over})
+    return Trainer(cfg, builder=Sized(cfg, "cuda"), device="cuda")
+
+
+def _family_run(label, base, over, want_k7, samples=None):
+    """17a-17c: a Trainer cut to 2 epochs (or over's): K7's launches, set
+    to 0 before train() and read after, equal to the train steps
+    (want_k7) or 0; every metric finite; the last epoch's mean loss below
+    the first's (bottom-up: 2 steps, the parts only held finite);
+    evaluate() finite;
+    a fresh Trainer resumes to the same step with equal parameters; the
+    step's img/s on a device batch."""
+    from tpupose_torch.ops.cuda_warp import affine_warp
+
+    shutil.rmtree(FAMILIES_DIR, ignore_errors=True)
+    over = {"train.epochs": "2", **over}
+    tr = _families_trainer(base, over, samples)
+    log_, step_fn = _recorded_steps(tr, (affine_warp,))
+    torch.cuda.synchronize()
+    affine_warp.launches = 0
+    t0 = time.perf_counter()
+    tr.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    k7 = affine_warp.launches
+    n_steps = tr.state.step
+    per_step = {k: [float(m[k]) for m, _ in log_] for k in log_[0][0]}
+    bad = [k for k, v in per_step.items() if not np.all(np.isfinite(v))]
+    spe = tr.steps_per_epoch
+    first = float(np.mean(per_step["loss"][:spe]))
+    last = float(np.mean(per_step["loss"][-spe:]))
+    if (n_steps != tr.cfg.train.epochs * spe or len(log_) != n_steps or bad
+            or k7 != (n_steps if want_k7 else 0)
+            or any(c != (int(want_k7),) for _, c in log_)):
+        raise AssertionError(f"phase 17 {label}: {n_steps} steps, K7 "
+                             f"launches {k7} ({[c[0] for _, c in log_]}), "
+                             f"non-finite {bad}")
+    falling = last < first
+    if samples is None and not falling:
+        raise AssertionError(f"phase 17 {label}: the epoch mean loss went "
+                             f"{first:.6f} -> {last:.6f}")
+    log(f"phase 17 {label}: {n_steps} steps in {train_s:.1f} s, K7 "
+        f"launches {k7} (want {'one a step' if want_k7 else 0}); epoch mean "
+        f"loss {first:.6f} -> {last:.6f}; per step "
+        f"{json.dumps({k: [round(x, 6) for x in v] for k, v in per_step.items()})};"
+        f" trainer img/s (last epoch, host data included) "
+        f"{tr.img_per_s:.1f}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev = tr.evaluate()
+    eval_s = time.perf_counter() - t0
+    if not ev or not all(np.isfinite(v) for v in ev.values()):
+        raise AssertionError(f"phase 17 {label}: evaluate() {ev}")
+    n_valid = len(tr.valid_ds)
+    log(f"phase 17 {label}: evaluate() "
+        f"{json.dumps({k: round(v, 6) for k, v in ev.items()})} in "
+        f"{eval_s:.2f} s ({n_valid / eval_s:.1f} img/s, random-init "
+        f"steps, not gated)")
+    tr2 = _families_trainer(base, over, samples)
+    if tr2.load_checkpoint() != n_steps or tr2.state.step != n_steps:
+        raise AssertionError(f"phase 17 {label}: resume did not restore "
+                             f"the step")
+    for (k, a), b in zip(tr.model.state_dict().items(),
+                         tr2.model.state_dict().values()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"phase 17 {label}: resume: {k} differs")
+    del tr2
+    db = next(iter(tr._prefetched(tr.train_loader)))
+    ips, peak = _step_rate(step_fn, tr.state, db)
+    B = db["images"].shape[0]
+    log(f"phase 17 {label}: resume restores step {n_steps} with equal "
+        f"parameters and statistics; train step at B={B} (device batch, "
+        f"bf16 autocast) {ips:.1f} img/s, peak device memory {peak:.2f} GiB")
+    out = {"steps": n_steps, "k7_launches": k7, "loss_first_epoch": first,
+           "loss_last_epoch": last, "falling": falling,
+           "step_img_per_s": ips, "step_batch": B, "peak_gib": peak,
+           "trainer_img_per_s": tr.img_per_s,
+           "evaluate_img_per_s": n_valid / eval_s, "evaluate": ev}
+    return out, tr
+
+
+def _decode_ae_reading(tr):
+    """decode_ae on one valid batch's maps of the trained bottom-up
+    model: host ms (a synchronize at the end), device ms (torch.profiler)
+    and the device kernels of one call."""
+    from tpupose_torch.models.bottom_up import BottomUpPose
+    from tpupose_torch.ops.ae_decode import decode_ae
+    from tpupose_torch.ops.preprocess import normalize_images
+
+    batch = next(iter(tr.valid_loader))
+    model = tr.state.for_eval()
+    with torch.no_grad():
+        hm, tg = BottomUpPose.split(model(normalize_images(
+            torch.as_tensor(batch["images"], device="cuda"))))
+    P = tr.cfg.data.max_instances
+
+    def call():
+        return decode_ae(hm, tg, max_people=P)
+
+    return {"batch": int(hm.shape[0]), "maps": list(hm.shape[1:]),
+            "max_people": P, "host_ms": _host_ms(call, n=5),
+            "device_ms": device_ms(call, iters=3, label="decode_ae"),
+            "device_kernels": _device_kernels(call)}
+
+
+def _cli_test_run(label, base, over, images_dir, want_k8_per_image=None):
+    """17d: cli.test's run_inference over the folder: K8's launches, set
+    to 0 before and read after, and the files written."""
+    from tpupose_torch.cli.test import run_inference
+    from tpupose_torch.ops.cuda_attention import flash_attention
+
+    out_dir = FAMILIES_DIR / f"viz_{label}"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cfg = _cfg(base, over)
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    stats = run_inference(cfg, str(images_dir), str(out_dir), "",
+                          device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k8 = flash_attention.launches
+    files = sorted(p.name for p in out_dir.iterdir())
+    n = stats["images"]
+    want = sorted(p.name for p in images_dir.iterdir())
+    if files != want or n != len(want) or (
+            want_k8_per_image is not None and k8 != want_k8_per_image * n):
+        raise AssertionError(f"phase 17 cli.test {label}: {k8} K8 launches "
+                             f"for {n} images, files {files}")
+    log(f"phase 17 cli.test {label}: {n} images -> {len(files)} annotated "
+        f"files, K8 launches {k8}, image loop {stats['seconds']:.2f} s "
+        f"({n / stats['seconds']:.2f} img/s), the call {wall:.1f} s with "
+        f"the model's build")
+    return {"images": n, "files": len(files), "k8_launches": k8,
+            "loop_seconds": stats["seconds"], "call_seconds": wall}
+
+
+def families_phase(results, card: str):
+    """Phase 17: the remaining model families at their yamls' full width
+    (17a SimCC-R50 256x192 with device affine, 17b DeepPose-R50 256x256
+    K = 16 with coord_mse and with rle, 17c bottom-up HRNet-W32 512x512
+    with the AE grouping's cost on the card) through Trainer, and 17d
+    cli.test over a folder of 4 seeded JPEGs on the DINOv3Pose ViT-B 640
+    config (exactly 12 K8 launches an image), the bottom-up config and
+    the DINOv3Pose config with eval.int8."""
+    t_phase = time.perf_counter()
+    runs = {}
+    # the epoch counts: 2 of 140 / 100 / 300, 1 warmup epoch (SimCC's 1,
+    # bottom-up's 3 cut to 1: the lr would still be ramping at the end)
+    runs["simcc"], tr = _family_run(
+        "17a SimCC-R50 256x192", SIMCC_R50,
+        {"data.device_affine": "true"}, want_k7=True)
+    del tr
+    torch.cuda.empty_cache()
+    # DeepPose: 4 of 100 epochs with the config's 3 warmup epochs. The
+    # yaml's RMSprop (optax's scale_by_rms from a zero second moment)
+    # moves every parameter ~3.2 lr in its first updates, which spikes a
+    # random-init R50's loss on the synthetic set in epochs 1-2: over 2
+    # epochs the mean can still be above the first epoch's, by epoch 4 it
+    # is below it
+    metrics = "['pck','pckh','mpjpe','auc','epe']"
+    for loss in ("coord_mse", "rle"):
+        runs[loss], tr = _family_run(
+            f"17b DeepPose-R50 256x256 {loss}", DEEP_POSE,
+            {"loss.name": loss, "eval.metrics": metrics,
+             "train.epochs": "4"}, want_k7=False)
+        del tr
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    runs["bottom_up"], tr = _family_run(
+        "17c bottom-up HRNet-W32 512x512", BOTTOM_UP_W32,
+        {"train.warmup_epochs": "1"}, want_k7=False, samples=BU_SAMPLES)
+    runs["bottom_up"]["run_seconds"] = time.perf_counter() - t0
+    dec = _decode_ae_reading(tr)
+    log(f"phase 17 17c decode_ae (K = 17, P = {dec['max_people']}, maps "
+        f"{dec['maps']}) at B={dec['batch']} on {card}: "
+        f"{json.dumps(dec)}")
+    runs["bottom_up"]["decode_ae"] = dec
+    del tr
+    torch.cuda.empty_cache()
+
+    images = FAMILIES_DIR / "images"
+    write_video_frames(images, n=4, seed=1)
+    conf = {"eval.conf_threshold": str(VIDEO_CONF)}
+    cli = {"dinov3": _cli_test_run("dinov3_vitpose", DINOV3_VITPOSE, conf,
+                                   images, want_k8_per_image=12),
+           "bottom_up": _cli_test_run("bottom_up_w32", BOTTOM_UP_W32, {},
+                                      images, want_k8_per_image=0),
+           "dinov3_int8": _cli_test_run("dinov3_vitpose_int8",
+                                        DINOV3_VITPOSE,
+                                        {**conf, "eval.int8": "true"},
+                                        images)}
+    if cli["dinov3_int8"]["k8_launches"] < 12 * 4:
+        raise AssertionError("phase 17 cli.test int8: K8 did not run")
+    phase_s = time.perf_counter() - t_phase
+    results["affine_warp"]["families"] = {
+        "simcc_train_launches": runs["simcc"]["k7_launches"],
+        "simcc_train_steps": runs["simcc"]["steps"],
+        "deeppose_bottom_up_launches": sum(
+            runs[k]["k7_launches"] for k in ("coord_mse", "rle",
+                                             "bottom_up"))}
+    results["flash_attention"]["cli_test"] = {
+        "launches_per_image": 12, "dinov3": cli["dinov3"],
+        "dinov3_int8": cli["dinov3_int8"], "bottom_up": cli["bottom_up"]}
+    results["families"] = {"runs": runs, "cli_test": cli,
+                           "dataset_seconds": _FAMILY_DATA.get("seconds"),
+                           "phase_seconds": phase_s}
+    log(f"phase 17 the bottom-up run's synthetic_yolo samples (512x512, "
+        f"{BU_SAMPLES}) built on the host in "
+        f"{json.dumps(_FAMILY_DATA.get('seconds'))} s")
+    log(f"phase 17 seconds: {phase_s:.1f}")
+
+
+def families_main(out_path: Path) -> int:
+    """Phase 17 on its own (a child process main() starts, as phase
+    16's): its rows of the kernels JSON go to `out_path`."""
+    from tpupose_torch.ops import _build
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout
+    card = smi.strip().splitlines()[0]
+    log(f"phase 17 card: {card}")
+    _build.build_all()
+    results = {k: {} for k in ("affine_warp", "flash_attention")}
+    try:
+        families_phase(results, card)
+    finally:
+        shutil.rmtree(FAMILIES_DIR, ignore_errors=True)
     out_path.write_text(json.dumps(results))
     return 0
 
@@ -3404,6 +3752,17 @@ def main() -> int:
         results[kernel].update(row)
     phase16.unlink()
 
+    # -- phase 17: the remaining families (SimCC-R50 on K7, DeepPose and
+    # RLE, bottom-up HRNet-W32 with the AE grouping) and cli.test (K8), in
+    # a child process, as phases 11-16 ------------------------------------
+    phase17 = ROOT / "build" / "chip_smoke_phase17.json"
+    subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                    "--phase17", str(phase17)], check=True, timeout=600)
+    fam = json.loads(phase17.read_text())
+    for kernel in ("affine_warp", "flash_attention"):
+        results[kernel].update(fam[kernel])
+    phase17.unlink()
+
     # -- phase 9: device times, measured last so that no profiler session
     # precedes the timing of any other phase -----------------------------------
     k8_row = results["flash_attention"]
@@ -3522,10 +3881,12 @@ if __name__ == "__main__":
         sys.exit(phase11_main(Path(sys.argv[2]), Path(sys.argv[3])))
     if len(sys.argv) == 3 and sys.argv[1] == "--phase12":
         sys.exit(hrnet_main(Path(sys.argv[2])))
-    if len(sys.argv) == 3 and sys.argv[1] in ("--phase15", "--phase16"):
+    if len(sys.argv) == 3 and sys.argv[1] in ("--phase15", "--phase16",
+                                              "--phase17"):
         if not torch.cuda.is_available():
             print("chip_smoke: CUDA is not available", file=sys.stderr)
             sys.exit(2)
-        sys.exit((video_main if sys.argv[1] == "--phase15"
-                  else dino_train_main)(Path(sys.argv[2])))
+        sys.exit({"--phase15": video_main, "--phase16": dino_train_main,
+                  "--phase17": families_main}[sys.argv[1]](
+                      Path(sys.argv[2])))
     sys.exit(main())

@@ -1072,3 +1072,80 @@ def test_dinov3_vit_yolo_train_step_launches_exactly(gpu, frozen):
     same = [torch.equal(a, p) for a, p in zip(before,
                                               model.backbone.parameters())]
     assert all(same) if frozen else not all(same)
+
+
+def test_simcc_train_step_launches_the_warp_once(gpu):
+    """One SimCC train step (ResNet-18 at 64x48, bins 128 x 96, bf16
+    autocast over float32 masters, device affine and jitter) through
+    make_simcc_train_step: exactly one K7 launch, finite loss and grad
+    norm."""
+    from tpupose_torch.engine.optimizers import make_optimizer
+    from tpupose_torch.configs.default import OptimizerConfig
+    from tpupose_torch.engine.train_state import (TrainState,
+                                                  make_simcc_train_step)
+    from tpupose_torch.losses.simcc import simcc_kl_loss
+    from tpupose_torch.models.simcc import SimCCPose
+    from tpupose_torch.ops.cuda_warp import affine_warp
+
+    model = SimCCPose("resnet18", 4, 2.0, (64, 48), dtype=torch.bfloat16,
+                      device=gpu, param_dtype=torch.float32)
+    state = TrainState(model, make_optimizer(OptimizerConfig(name="adam"),
+                                             model.named_parameters()))
+    g = torch.Generator().manual_seed(3)
+    batch = {"images": torch.randint(0, 256, (8, 64, 48, 3), generator=g,
+                                     dtype=torch.uint8).to(gpu),
+             "joints": (torch.rand((8, 4, 2), generator=g)
+                        * torch.tensor([96.0, 128.0])).to(gpu),
+             "visibility": torch.ones((8, 4), device=gpu)}
+    step = make_simcc_train_step(simcc_kl_loss, (128, 96),
+                                 color_jitter_strength=0.2,
+                                 affine_rotation=30.0, affine_scale=0.25)
+    n0 = affine_warp.launches
+    met = step(state, batch)
+    torch.cuda.synchronize()
+    assert affine_warp.launches - n0 == 1
+    assert all(torch.isfinite(v).all() for v in met.values())
+
+
+def test_cli_test_image_launches_k8_exactly(gpu, tmp_path):
+    """cli.test on a DINOv3Pose ViT-S config (12 blocks) at 64x64: one
+    image, exactly 12 K8 launches, one annotated file."""
+    from PIL import Image
+
+    from tpupose_torch.cli.test import run_inference
+    from tpupose_torch.configs import load_config
+    from tpupose_torch.ops.cuda_attention import flash_attention
+
+    (tmp_path / "in").mkdir()
+    Image.fromarray(np.random.RandomState(0).randint(
+        0, 255, (48, 80, 3)).astype(np.uint8)).save(tmp_path / "in" / "a.jpg")
+    cfg = load_config("tpupose/configs/method/dinov3_vitpose.yaml", {
+        "model.backbone": "dinov3_vit_small",
+        "model.neck_channels": [48, 96, 192], "data.image_size": [64, 64],
+        "eval.conf_threshold": 0.005})
+    n0 = flash_attention.launches
+    out = run_inference(cfg, str(tmp_path / "in"), str(tmp_path / "out"),
+                        device=gpu)
+    torch.cuda.synchronize()
+    assert flash_attention.launches - n0 == 12
+    assert out["images"] == 1 and (tmp_path / "out" / "a.jpg").exists()
+
+
+def test_decode_ae_on_the_card_equals_the_cpu(gpu):
+    """The AE grouping on the card (CUDA sort, argmin, max-pool) gives the
+    CPU's persons on int8-like lattice maps (exact ties) and on random
+    ones."""
+    from tpupose_torch.ops.ae_decode import decode_ae
+
+    rs = np.random.RandomState(1)
+    for hm in ((rs.randint(0, 6, (4, 17, 32, 32)) / 5.0),
+               rs.uniform(0, 1, (4, 17, 32, 32))):
+        hm = torch.from_numpy(hm.astype(np.float32))
+        tg = torch.from_numpy(rs.normal(0, 1, hm.shape).astype(np.float32))
+        want = decode_ae(hm, tg, max_people=30)
+        got = decode_ae(hm.to(gpu), tg.to(gpu), max_people=30)
+        for k in ("coords", "scores", "person_mask"):
+            assert torch.equal(got[k].cpu(), want[k]), k
+        torch.testing.assert_close(got["person_scores"].cpu(),
+                                   want["person_scores"], rtol=1e-6,
+                                   atol=0)

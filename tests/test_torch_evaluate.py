@@ -84,12 +84,12 @@ def coco_root(tmp_path_factory):
     return root
 
 
-def _loaders(root, hw, hm):
+def _loaders(root, hw, hm, udp=False):
     kw = dict(image_dir=str(root / "val2017"),
               ann_file=str(root / "annotations"
                            / "person_keypoints_val2017.json"),
               image_size=hw, heatmap_size=hm, is_train=False,
-              flip_pairs=PAIRS)
+              flip_pairs=PAIRS, udp=udp)
     lk = dict(batch_size=4, shuffle=False, drop_last=False, pad_last=True)
     return JLoader(JCoco(**kw), **lk), PLoader(PCoco(**kw), **lk)
 
@@ -271,6 +271,36 @@ def test_run_matches_jax_with_a_perfect_model(coco_root, flip):
     got = pev.run(pl, _metrics("tpupose_torch"))
     assert got["mAP50"] > 0.9 and got["pck"] > 0.9, got
     _assert_metrics(got, want)
+
+
+@pytest.mark.parametrize("flip", [True, False], ids=["flip", "noflip"])
+@pytest.mark.parametrize("decode", ["dark", "quarter_offset", "argmax"])
+@pytest.mark.parametrize("udp", [False, True], ids=["classic", "udp"])
+def test_evaluator_grid_matches_jax(coco_root, udp, decode, flip):
+    """The evaluator's option grid, udp (the dataset's and the
+    evaluator's) x decode x flip, on the perfect pool model over the
+    COCO-format set: each batch's source coordinates within 1e-4 px and
+    scores within 1e-5 of JAX's; every unitless metric (PCK, AP, AR,
+    AUC) within 1e-6, the pixel ones (MPJPE, EPE) within 1e-5 px: source
+    coordinates up to 320 px carry float32's 3e-5 px resolution."""
+    jl, pl = _loaders(coco_root, (128, 96), (32, 24), udp=udp)
+    v = JPool().init(jax.random.PRNGKey(0), jnp.zeros((1, 128, 96, 3)))
+    pairs = np.zeros((0, 2), np.int64)
+    kw = dict(decode=decode, flip_test=flip, flip_pairs=pairs, udp=udp)
+    jev = JEvaluator(_jstate(JPool().apply, v), (32, 24), **kw)
+    pev = TopDownEvaluator(PPool(), (32, 24), device="cpu", **kw)
+    for jb, pb in zip(jl, pl):
+        wc, ws = jev.step(jb["images"], jb["center"], jb["scale"])
+        gc, gs = pev.step(pb["images"], pb["center"], pb["scale"])
+        np.testing.assert_allclose(gc.numpy(), np.asarray(wc), atol=1e-4)
+        np.testing.assert_allclose(gs.numpy(), np.asarray(ws), rtol=1e-5,
+                                   atol=1e-7)
+    want = jev.run(jl, _metrics("tpupose"))
+    got = pev.run(pl, _metrics("tpupose_torch"))
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        tol = 1e-5 if k in ("mpjpe", "epe") else 1e-6
+        assert abs(got[k] - w) <= tol * max(1.0, abs(w)), (k, got[k], w)
 
 
 def test_run_keeps_two_batches_in_flight_in_loader_order(r18, coco_root,

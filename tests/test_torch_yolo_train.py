@@ -440,14 +440,22 @@ def test_cli_test_prints_validate_and_evaluate(tmp_path, capsys):
 
 @pytest.mark.parametrize("loss", ["coord_mse", "rle", "ae", "simcc_kl"])
 def test_remaining_losses_raise_with_their_item(loss, tmp_path):
-    """The losses of the families not ported yet raise in the Builder and
-    in Trainer, citing ROADMAP Queue A item 9."""
+    """The losses of ROADMAP Queue A item 9, which raised here citing the
+    item until their families were ported, now build in the Builder and
+    pick their family in Trainer (as JAX's Trainer picks it from
+    loss.name); an unknown loss raises in both."""
     from tpupose_torch.engine.builder import Builder
     from tpupose_torch.engine.trainer import Trainer
 
     cfg, _ = _cfgs(YAML, *TINY, f"loss.name={loss}",
                    f"train.output_dir={tmp_path}")
-    with pytest.raises(ValueError, match="item 9"):
-        Builder(cfg, "cpu").loss()
-    with pytest.raises(ValueError, match="item 9"):
-        Trainer(cfg, device="cpu")
+    assert callable(Builder(cfg, "cpu").loss())
+    family = {"coord_mse": "regression", "rle": "rle", "ae": "bottom_up",
+              "simcc_kl": "simcc"}[loss]
+    assert Trainer(cfg, device="cpu").family == family
+    bad, _ = _cfgs(YAML, *TINY, "loss.name=no_such_loss",
+                   f"train.output_dir={tmp_path}")
+    with pytest.raises(ValueError, match="unknown loss"):
+        Builder(bad, "cpu").loss()
+    with pytest.raises(ValueError, match="unknown loss"):
+        Trainer(bad, device="cpu")

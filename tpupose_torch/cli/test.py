@@ -1,12 +1,33 @@
-"""Drawing for the inference CLIs (the port's copy of the renderer of
-tpupose/cli/test.py: `draw_detections` and its two skeletons). The rest
-of `cli.test` (folder inference with NMS and rescaling) waits for
-DINOv3Pose training (ROADMAP Queue A); `cli.video` draws with this.
+"""Inference / visualization CLI (counterpart of tpupose/cli/test.py):
+load weights -> resize -> forward -> NMS or AE grouping -> rescale the
+keypoints -> draw, writing each annotated image under its input's name.
+
+    python -m tpupose_torch.cli.test --cfg cfg.yaml [--ckpt dir[@best]] \
+        images_dir=folder/ output_dir=viz/ [--device cuda]
+
+A single-stage config (DINOv3Pose) runs YoloPosePredictor's pipeline:
+the images load on two threads and the device work of the next images
+is queued before earlier results are drawn, strictly in order. A
+`bottom_up` config runs BottomUpPredictor (forward + AE grouping on the
+device). `eval.int8` serves through the PTQ intercept calibrated on the
+first image. Without `--ckpt` the model keeps the builder's seeded init
+(a warning says so). `--device` defaults to cuda and raises where CUDA
+is absent. `draw_detections` (and its two skeletons) also draws for
+`cli.video`.
 """
 
 from __future__ import annotations
 
+import glob
+import os
+import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
+
+from tpupose_torch.configs import default_config, parse_args, update_config
+from tpupose_torch.utils.logging import printS, printT, printW
 
 # skeleton for the reference's 4-kpt object poses: 0-1-2-3-0 + midline
 # (HPE/test.py:189-277 draw_detections)
@@ -51,3 +72,130 @@ def draw_detections(image, keypoints, scores, valid, skeleton=None, radius=3):
             if kps[k, 2] > 0.5:
                 dot(kps[k, 0], kps[k, 1], (255, 0, 0))
     return img
+
+
+def run_inference(cfg, images_dir: str, output_dir: str, weights: str = "",
+                  device="cuda"):
+    """Annotate every *.jpg / *.jpeg / *.png of `images_dir` (sorted) into
+    `output_dir`. Returns {"images": count, "seconds": the image loop's
+    seconds (the model's build and calibration excluded)}."""
+    from PIL import Image
+
+    from tpupose_torch.engine.builder import Builder
+    from tpupose_torch.engine.checkpoint import restore_for_eval
+    from tpupose_torch.engine.predictor import (BottomUpPredictor,
+                                                YoloPosePredictor)
+
+    builder = Builder(cfg, device)
+    model = builder.model()
+    os.makedirs(output_dir, exist_ok=True)
+    if weights:
+        model = restore_for_eval(builder, model, weights)  # <dir>[@best]
+    else:
+        printW("no --ckpt given: running with random weights")
+    H, W = cfg.data.image_size
+    paths = sorted(p for ext in ("*.jpg", "*.jpeg", "*.png")
+                   for p in glob.glob(os.path.join(images_dir, ext)))
+
+    def load(p):
+        pil = Image.open(p).convert("RGB")
+        return pil, np.asarray(pil.resize((W, H)), np.uint8)
+
+    bottom_up = cfg.model.name == "bottom_up"
+    quant_scales = None
+    if cfg.eval.int8 and paths:
+        calib = (BottomUpPredictor if bottom_up
+                 else YoloPosePredictor).calibrate_int8
+        quant_scales = calib(model, load(paths[0])[1][None])
+        printT(f"int8 serving: calibrated {len(quant_scales)} layers")
+
+    def save(p, img, n, what):
+        out_path = os.path.join(output_dir, os.path.basename(p))
+        Image.fromarray(img).save(out_path)
+        printT(f"{p}: {n} {what} -> {out_path}")
+
+    t0 = time.perf_counter()
+    if bottom_up:
+        predictor = BottomUpPredictor(
+            model, max_people=cfg.data.max_instances,
+            score_threshold=cfg.eval.ae_score_threshold,
+            tag_threshold=cfg.eval.ae_tag_threshold,
+            quant_scales=quant_scales, device=builder.device)
+        for p in paths:
+            pil, arr = load(p)
+            out = predictor(arr[None])
+            w0, h0 = pil.size
+            kp = np.concatenate([out["coords"][0] * [w0 / W, h0 / H],
+                                 out["scores"][0][..., None]], axis=-1)
+            img = draw_detections(np.asarray(pil, np.uint8), kp,
+                                  out["person_scores"][0],
+                                  out["person_mask"][0])
+            save(p, img, int(out["person_mask"][0].sum()), "people")
+    else:
+        predictor = YoloPosePredictor(
+            model, num_classes=cfg.model.num_classes,
+            num_keypoints=cfg.model.num_keypoints,
+            conf_threshold=cfg.eval.conf_threshold,
+            iou_threshold=cfg.eval.iou_threshold,
+            max_detections=cfg.eval.max_detections,
+            has_box_branch=(cfg.model.reg_max > 0
+                            or cfg.loss.name == "v8_pose"),
+            quant_scales=quant_scales, device=builder.device)
+        pool = ThreadPoolExecutor(max_workers=2)
+        metas: deque = deque()   # bounded by the pipeline's depth
+
+        def arrays():
+            q: deque = deque()
+            for p in paths:
+                q.append((p, pool.submit(load, p)))
+                if len(q) > 2:
+                    yield _next_image(q, metas)
+            while q:
+                yield _next_image(q, metas)
+
+        try:
+            for det in predictor.pipeline(arrays()):
+                p, pil = metas.popleft()
+                w0, h0 = pil.size
+                kp = det["keypoints"][0].copy()
+                kp[..., 0] *= w0 / W
+                kp[..., 1] *= h0 / H
+                valid = det["valid"][0]
+                img = draw_detections(np.asarray(pil, np.uint8), kp,
+                                      det["scores"][0], valid)
+                save(p, img, int(valid.sum()), "detections")
+        finally:
+            pool.shutdown(wait=False)
+    seconds = time.perf_counter() - t0
+    printS(f"processed {len(paths)} images")
+    return {"images": len(paths), "seconds": seconds}
+
+
+def _next_image(q: deque, metas: deque):
+    """The oldest queued load's uint8 batch of one; its (path, PIL image)
+    go to `metas` for the drawing."""
+    p, fut = q.popleft()
+    pil, arr = fut.result()
+    metas.append((p, pil))
+    return arr[None]
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    extra, rest = {}, []
+    for item in args.opts:
+        k, v = item.split("=", 1)
+        if k in ("images_dir", "output_dir"):
+            extra[k] = v
+        else:
+            rest.append(item)
+    args.opts = rest
+    cfg = update_config(default_config(), args)
+    run_inference(cfg, extra.get("images_dir", "images"),
+                  extra.get("output_dir", "viz"), args.ckpt,
+                  device=args.device)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,8 +1,9 @@
 """Builder: config -> objects (counterpart of tpupose/engine/builder.py).
 
-Ported: `model()` (simple_baseline, hrnet, vitpose, dinov3_pose),
-`loss()` (joints_mse, joints_mse_weighted, and DINOv3Pose's
-pose_compute and v8_pose), `lr_scheduler()`, `optimizer()` (head/base lr
+Ported: `model()` (simple_baseline, hrnet, vitpose, dinov3_pose, simcc,
+deeppose, bottom_up), `loss()` (joints_mse, joints_mse_weighted,
+DINOv3Pose's pose_compute and v8_pose, coord_mse, rle, ae, simcc_kl),
+`lr_scheduler()`, `optimizer()` (head/base lr
 split, frozen backbone, global-norm clipping), `dataset()` (synthetic,
 synthetic_yolo, coco) and `dataloader()`. Any other
 name raises ValueError naming the ROADMAP item that ports it. The JAX
@@ -11,6 +12,8 @@ trains on one device.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -26,9 +29,7 @@ def is_backbone_path(name: str) -> bool:
     return name.startswith("backbone.")
 
 
-_MODEL_ITEMS = {"simcc": "Queue A item 9", "deeppose": "Queue A item 9",
-                "bottom_up": "Queue A item 9", "fskd": "Queue A item 10",
-                "fcmae": "Queue A item 10"}
+_MODEL_ITEMS = {"fskd": "Queue A item 10", "fcmae": "Queue A item 10"}
 
 
 def _unported(kind: str, name: str, item: str):
@@ -43,8 +44,9 @@ class Builder:
 
     # -- model -----------------------------------------------------------------
     def model(self):
-        """SimpleBaseline, HRNetPose, ViTPose or DINOv3Pose with flax's init
-        drawn from a generator seeded by train.seed, float32 master
+        """SimpleBaseline, HRNetPose, ViTPose, DINOv3Pose, SimCCPose,
+        DeepPose (RLE head with loss.name "rle") or BottomUpPose with
+        flax's init drawn from a generator seeded by train.seed, float32 master
         weights, and bf16 autocast when train.mixed_precision (else
         float32 throughout). train.remat checkpoints the blocks
         (models/remat.py; ViTPose's through its own DinoViT)."""
@@ -54,7 +56,7 @@ class Builder:
         m = self.cfg.model
         if m.name not in MODELS:
             raise _unported("model", m.name, _MODEL_ITEMS.get(
-                m.name, "Queue A items 9-10"))
+                m.name, "Queue A item 10"))
         if m.pretrained:
             raise _unported("model.pretrained", m.pretrained,
                             "Queue A item 12")
@@ -83,6 +85,41 @@ class Builder:
                                device="cpu", param_dtype=torch.float32,
                                remat=remat)
             init_dinov3_pose_like_flax(model, g)
+        elif m.name == "deeppose":
+            from tpupose_torch.models.deeppose import (
+                DeepPose, init_deeppose_like_flax)
+
+            # loss rle implies the (mu, sigma) + flow head: the loss and
+            # the head agree (the v8_pose / reg_max coupling)
+            model = DeepPose(m.backbone, m.num_keypoints,
+                             rle=(self.cfg.loss.name == "rle"), dtype=dtype,
+                             device="cpu", param_dtype=torch.float32,
+                             remat=remat)
+            init_deeppose_like_flax(model, g)
+        elif m.name == "simcc":
+            from tpupose_torch.models.simcc import SimCCPose
+
+            # the bin grid doubles as model.heatmap_size (the joint
+            # transform and the evaluator's back-projection are shared)
+            H, W = self.cfg.data.image_size
+            r = m.split_ratio
+            want = (int(H * r), int(W * r))
+            if tuple(m.heatmap_size) != want:
+                raise ValueError(
+                    f"simcc: model.heatmap_size must equal image_size x "
+                    f"split_ratio = {want}, got {tuple(m.heatmap_size)}")
+            model = SimCCPose(m.backbone, m.num_keypoints, r, (H, W),
+                              dtype=dtype, device="cpu",
+                              param_dtype=torch.float32, remat=remat)
+            init_like_flax(model, g)
+        elif m.name == "bottom_up":
+            from tpupose_torch.models.bottom_up import BottomUpPose
+
+            model = BottomUpPose(m.backbone, m.num_keypoints,
+                                 tuple(m.deconv_channels), dtype=dtype,
+                                 device="cpu", param_dtype=torch.float32,
+                                 remat=remat)
+            init_like_flax(model, g)
         elif m.name == "hrnet":
             from tpupose_torch.models.backbones.hrnet import HRNetPose
 
@@ -140,7 +177,27 @@ class Builder:
             return fn
         if name == "joints_mse_weighted":
             return joints_mse_weighted_loss
-        raise _unported("loss", name, "Queue A item 9")
+        if name == "coord_mse":
+            from tpupose_torch.losses.heatmap import coord_mse_loss
+
+            return coord_mse_loss
+        if name == "rle":
+            from tpupose_torch.losses.rle import rle_loss
+
+            return functools.partial(rle_loss, residual=lc.rle_residual,
+                                     q=lc.rle_q)
+        if name == "ae":
+            from tpupose_torch.losses.ae import ae_loss
+
+            return functools.partial(ae_loss, sigma=self.cfg.data.sigma,
+                                     tag_sigma=lc.ae_tag_sigma,
+                                     pull_weight=lc.ae_pull_weight,
+                                     push_weight=lc.ae_push_weight)
+        if name == "simcc_kl":
+            from tpupose_torch.losses.simcc import simcc_kl_loss
+
+            return simcc_kl_loss
+        raise ValueError(f"unknown loss {name!r}")
 
     # -- optimizer + schedule --------------------------------------------------
     def lr_scheduler(self, steps_per_epoch: int):

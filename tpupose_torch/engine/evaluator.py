@@ -1,7 +1,11 @@
-"""Top-down evaluation (counterpart of tpupose/engine/evaluator.py,
-heatmap family): normalize -> forward (+ flipped forward, merge) -> DARK
-decode -> back-projection to source coordinates, per batch on the device
-(`step`), then metric accumulation on the host (`run`).
+"""Top-down evaluation (counterpart of tpupose/engine/evaluator.py):
+normalize -> forward (+ flipped forward, merge) -> DARK decode ->
+back-projection to source coordinates, per batch on the device (`step`),
+then metric accumulation on the host (`run`). With family="simcc" the
+forward gives 1D bin logits, merged under flip as probabilities and
+decoded by argmax + parabolic sub-bin refinement (ops/decode.
+decode_simcc); the bin grid takes the heatmap grid's place in the
+back-projection.
 
 For a SimpleBaseline-R50 at 256x192 (computing in bf16 on the card,
 float32 master weights or not; any dtype on the CPU, where the kernels'
@@ -75,7 +79,9 @@ class TopDownEvaluator:
                  quant_scales=None):
         """model: a tpupose_torch heatmap model, SimpleBaseline, HRNetPose
         or ViTPose (or any module mapping normalized NHWC images to (B,
-        Hh, Wh, K) heatmaps), moved to `device` and put in eval mode.
+        Hh, Wh, K) heatmaps), or with family="simcc" a SimCCPose
+        (heatmap_size the bin grid), moved to `device` and put in eval
+        mode.
         udp: unit-length coordinate convention (back-projection on the
         (N-1)-interval grid, flip-test mirror without the 1-px shift).
         int8_engine: an engine built from this model, which replaces
@@ -86,9 +92,11 @@ class TopDownEvaluator:
         the R50 too (the yardstick of the kernel route)."""
         from tpupose_torch.ops.int8_engine import Int8Engine
 
-        if family != "heatmap":
-            raise ValueError(f"the port (and its int8_engine) serves the "
-                             f"heatmap family only, got family={family!r}")
+        if family not in ("heatmap", "simcc"):
+            raise ValueError(f"unknown evaluator family {family!r}")
+        if int8_engine is not None and family != "heatmap":
+            raise ValueError(f"int8_engine serves the heatmap family only "
+                             f"(got family={family!r})")
         if int8_engine is not None and not isinstance(
                 int8_engine, Int8Engine) and \
                 getattr(model, "backbone_name", None) != "resnet50":
@@ -97,6 +105,7 @@ class TopDownEvaluator:
                              f"backbone "
                              f"{getattr(model, 'backbone_name', None)!r}")
         self.device = resolve_device(device)
+        self.family = family
         self.heatmap_size = tuple(heatmap_size)
         self.flip_pairs = (np.asarray(flip_pairs) if flip_pairs is not None
                            else COCO_FLIP_PAIRS)
@@ -160,6 +169,32 @@ class TopDownEvaluator:
         return hm
 
     @torch.no_grad()
+    def simcc_coords(self, images: torch.Tensor):
+        """The SimCC family: uint8 (B, H, W, 3) on the device -> (coords
+        (B, K, 2) on the bin grid, scores (B, K)). Under flip test the
+        flipped forward's logits are un-flipped (the bin axis reversed
+        and shifted left by round(r) - 1 bins for split ratio r, by 0
+        under udp, where the reversal is the exact mirror) and the two
+        softmax PROBABILITIES are averaged (averaging logits would take
+        the distributions' geometric mean)."""
+        from tpupose_torch.ops.decode import decode_simcc, simcc_flip_back
+        from tpupose_torch.ops.preprocess import normalize_images
+
+        x = normalize_images(images)
+        xl, yl = self.forward(x)
+        if self.flip_test:
+            xlf, ylf = self.forward(x.flip(2))
+            r = xl.shape[-1] / images.shape[2]
+            shift = 0 if self.udp else int(round(r)) - 1
+            xlb, ylb = simcc_flip_back(xlf, ylf, self.flip_pairs,
+                                       shift_bins=shift)
+            xl = torch.log(0.5 * torch.softmax(xl.float(), -1)
+                           + 0.5 * torch.softmax(xlb.float(), -1) + 1e-12)
+            yl = torch.log(0.5 * torch.softmax(yl.float(), -1)
+                           + 0.5 * torch.softmax(ylb.float(), -1) + 1e-12)
+        return decode_simcc(xl, yl)
+
+    @torch.no_grad()
     def step(self, images, centers, scales):
         """One batch: uint8 crops (B, H, W, 3), centers/scales (B, 2) ->
         (source coords (B, K, 2), scores (B, K)) as device tensors."""
@@ -172,9 +207,12 @@ class TopDownEvaluator:
                                   device=self.device)
         scales = torch.as_tensor(scales, dtype=torch.float32,
                                  device=self.device)
-        hm = self.heatmaps(images)
-        coords, scores = decode_heatmaps(hm, self.decode, self.blur_kernel,
-                                         self.sigma)
+        if self.family == "simcc":
+            coords, scores = self.simcc_coords(images)
+        else:
+            coords, scores = decode_heatmaps(self.heatmaps(images),
+                                             self.decode, self.blur_kernel,
+                                             self.sigma)
         m = get_affine_matrix(centers, scales, 0.0, self.heatmap_size,
                               udp=self.udp)
         return affine_transform_points(coords, m), scores

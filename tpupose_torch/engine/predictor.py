@@ -9,6 +9,10 @@
   `appearance` per-detection embeddings pooled from the backbone's
   deepest map (ops/roi.py), all on the device; `dispatch` queues the work
   without waiting for it, `fetch` brings a result home in one copy.
+- BottomUpPredictor, BottomUpPose: uint8 frames -> heatmaps and tags
+  (flip-averaged heatmaps with flip pairs) -> AE grouping
+  (ops/ae_decode.py) -> fixed-size person arrays in input pixels, all on
+  the device, fetched in one copy.
 """
 
 from __future__ import annotations
@@ -213,3 +217,75 @@ class YoloPosePredictor:
                 yield q.popleft().result()
         finally:
             pool.shutdown(wait=False)
+
+
+class BottomUpPredictor:
+    def __init__(self, model, max_people: int = 30,
+                 score_threshold: float = 0.1, tag_threshold: float = 1.0,
+                 quant_scales=None, flip_test: bool = False,
+                 flip_pairs=None, device="cuda"):
+        """Detector-free multi-person inference. model: a tpupose_torch
+        BottomUpPose, moved to `device` (default "cuda"; raises where
+        CUDA is absent) and put in eval mode. flip_test mirror-averages
+        the heatmaps (joints swapped by flip_pairs; without pairs it is
+        off, as mirroring would average each joint with its
+        contralateral location); the tags stay the direct pass's (a
+        flipped forward embeds in another tag space). quant_scales:
+        {module name: amax} from `calibrate_int8`, the forward with those
+        layers in int8 (ops/quant.py)."""
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.max_people = max_people
+        self.score_threshold = score_threshold
+        self.tag_threshold = tag_threshold
+        self.quant_scales = dict(quant_scales) if quant_scales else None
+        self.flip_pairs = np.asarray(flip_pairs if flip_pairs is not None
+                                     else np.zeros((0, 2), np.int64))
+        self.flip_test = flip_test and len(self.flip_pairs) > 0
+
+    calibrate_int8 = staticmethod(HeatmapPredictor.calibrate_int8)
+
+    def _forward(self, x):
+        from tpupose_torch.ops.quant import quantized_apply
+
+        if self.quant_scales is not None:
+            return quantized_apply(self.model, self.quant_scales, x)
+        return self.model(x)
+
+    @torch.no_grad()
+    def dispatch(self, images) -> dict:
+        """Queue one batch of uint8 (B, H, W, 3) frames on the device:
+        {coords (B, P, K, 2) input px, scores (B, P, K), person_scores
+        (B, P), person_mask (B, P)} as device tensors, not waited for."""
+        from tpupose_torch.models.bottom_up import BottomUpPose
+        from tpupose_torch.ops.ae_decode import decode_ae
+        from tpupose_torch.ops.decode import flip_back
+        from tpupose_torch.ops.preprocess import normalize_images
+
+        images = torch.as_tensor(images, device=self.device)
+        H, W = images.shape[1:3]
+        x = normalize_images(images)
+        hm, tg = BottomUpPose.split(self._forward(x))
+        if self.flip_test:
+            hm_f, _ = BottomUpPose.split(self._forward(x.flip(2)))
+            hm = 0.5 * (hm + flip_back(hm_f, self.flip_pairs))
+        out = decode_ae(hm, tg, max_people=self.max_people,
+                        score_threshold=self.score_threshold,
+                        tag_threshold=self.tag_threshold)
+        stride = torch.tensor([W / hm.shape[3], H / hm.shape[2]],
+                              dtype=torch.float32, device=self.device)
+        out["coords"] = out["coords"] * stride
+        return out
+
+    @staticmethod
+    def fetch(out: dict) -> dict:
+        """Dispatched results -> dict of numpy arrays, one device-to-host
+        copy."""
+        keys = ("coords", "scores", "person_scores", "person_mask")
+        return dict(zip(keys, to_host([out[k] for k in keys])))
+
+    def __call__(self, images):
+        """images: (B, H, W, 3) uint8 frames. Returns numpy arrays: coords
+        (B, P, K, 2) input px, scores (B, P, K), person_scores (B, P),
+        person_mask (B, P)."""
+        return self.fetch(self.dispatch(images))

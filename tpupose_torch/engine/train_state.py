@@ -1,6 +1,7 @@
 """Train state and the train/eval steps (counterpart of
 tpupose/engine/train_state.py: TrainState, make_heatmap_train_step,
-make_yolo_train_step, make_heatmap_eval_step).
+make_simcc_train_step, make_regression_train_step, make_rle_train_step,
+make_bottom_up_train_step, make_yolo_train_step, make_heatmap_eval_step).
 
 The JAX step is one compiled program; here it is eager PyTorch on the
 model's device. One step: random draws -> affine augmentation (the warp
@@ -22,6 +23,11 @@ train-mode forward (the neck's BatchNorm statistics update) -> loss
 (ComputeLoss or v8PoseLoss) -> backward -> clip + the grouped update ->
 EMA; it returns the loss, grad_norm, each loss part as loss_<part> and,
 with mosaic, the mosaic's dropped instances, all device tensors.
+
+The SimCC step is the heatmap step with 1D bin targets (the device
+affine and jitter shared); the regression, RLE and bottom-up steps
+normalize, forward, take their loss and update, without augmentation,
+as in JAX.
 """
 
 from __future__ import annotations
@@ -106,6 +112,50 @@ def step_seed(seed: int, step: int) -> int:
     return ((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF)
 
 
+def _make_draws_for(seed: int, use_affine: bool, rotation: float,
+                    scale: float, jitter: float):
+    """`draws_for(step, batch, device)`: the affine and color-jitter draws
+    of update `step`, from a generator seeded from (seed, step) alone."""
+
+    def draws_for(step: int, batch: int, device) -> dict:
+        g = torch.Generator(device=device)
+        g.manual_seed(step_seed(seed, step))
+        out = {}
+        if use_affine:
+            out["affine"] = draw_affine_augment(g, batch, rotation, scale)
+        if jitter > 0:
+            out["jitter"] = draw_color_jitter(g, batch, jitter)
+        return out
+
+    return draws_for
+
+
+def _augment(images, joints, vis, draws, use_affine: bool, grid_hw,
+             udp: bool, jitter: float):
+    """The top-down steps' device augmentation: the affine warp (K7 on the
+    card; joints move on the target grid `grid_hw`, heatmap or bin), then
+    color jitter + normalize (or the plain normalize), cast to bf16 as
+    the JAX step casts. Returns (images, joints, visibility)."""
+    if use_affine:
+        mult, rot = draws["affine"]
+        images, joints, vis = random_affine_augment(
+            images, joints, vis, mult, rot, tuple(grid_hw), udp=udp)
+    if jitter > 0:
+        x = color_jitter(images.to(torch.float32) * (1.0 / 255.0),
+                         draws["jitter"])
+        m = torch.tensor(IMAGENET_MEAN, device=x.device)
+        s = torch.tensor(IMAGENET_STD, device=x.device)
+        return ((x - m) / s).to(torch.bfloat16), joints, vis
+    return normalize_images(images), joints, vis
+
+
+def _backward_update(state: TrainState, loss) -> dict:
+    state.optimizer.zero_grad()
+    loss.backward()
+    grad_norm = state.apply_gradients()
+    return {"loss": loss.detach(), "grad_norm": grad_norm}
+
+
 def make_heatmap_train_step(loss_fn, color_jitter_strength: float = 0.0,
                             jitter_seed: int = 0, heatmap_size=None,
                             sigma: float = 2.0, affine_rotation: float = 0.0,
@@ -124,17 +174,8 @@ def make_heatmap_train_step(loss_fn, color_jitter_strength: float = 0.0,
     use_affine = affine_rotation > 0 or affine_scale > 0
     if use_affine and heatmap_size is None:
         raise ValueError("device affine augmentation needs heatmap_size")
-
-    def draws_for(step: int, batch: int, device) -> dict:
-        g = torch.Generator(device=device)
-        g.manual_seed(step_seed(jitter_seed, step))
-        out = {}
-        if use_affine:
-            out["affine"] = draw_affine_augment(g, batch, affine_rotation,
-                                                affine_scale)
-        if color_jitter_strength > 0:
-            out["jitter"] = draw_color_jitter(g, batch, color_jitter_strength)
-        return out
+    draws_for = _make_draws_for(jitter_seed, use_affine, affine_rotation,
+                                affine_scale, color_jitter_strength)
 
     def train_step(state: TrainState, batch: dict, draws: dict = None):
         if use_affine and "target" in batch:
@@ -143,19 +184,9 @@ def make_heatmap_train_step(loss_fn, color_jitter_strength: float = 0.0,
         images = batch["images"]
         if draws is None:
             draws = draws_for(state.step, images.shape[0], images.device)
-        joints, vis = batch.get("joints"), batch.get("visibility")
-        if use_affine:
-            mult, rot = draws["affine"]
-            images, joints, vis = random_affine_augment(
-                images, joints, vis, mult, rot, tuple(heatmap_size), udp=udp)
-        if color_jitter_strength > 0:
-            x = color_jitter(images.to(torch.float32) * (1.0 / 255.0),
-                             draws["jitter"])
-            m = torch.tensor(IMAGENET_MEAN, device=x.device)
-            s = torch.tensor(IMAGENET_STD, device=x.device)
-            imgs = ((x - m) / s).to(torch.bfloat16)
-        else:
-            imgs = normalize_images(images)
+        imgs, joints, vis = _augment(
+            images, batch.get("joints"), batch.get("visibility"), draws,
+            use_affine, heatmap_size, udp, color_jitter_strength)
         if "target" in batch:
             target, tw = batch["target"], batch.get("target_weight")
         else:
@@ -164,13 +195,101 @@ def make_heatmap_train_step(loss_fn, color_jitter_strength: float = 0.0,
             t, tw = gaussian_heatmaps(joints, vis, tuple(heatmap_size), sigma)
             target = t.permute(0, 2, 3, 1)               # NKHW -> NHWK
         model = state.model.train()
-        loss = loss_fn(model(imgs), target, tw)
-        state.optimizer.zero_grad()
-        loss.backward()
-        grad_norm = state.apply_gradients()
-        return {"loss": loss.detach(), "grad_norm": grad_norm}
+        return _backward_update(state, loss_fn(model(imgs), target, tw))
 
     train_step.draws_for = draws_for
+    return train_step
+
+
+def make_simcc_train_step(loss_fn, bins_hw, sigma: float = 6.0,
+                          color_jitter_strength: float = 0.0,
+                          jitter_seed: int = 0,
+                          affine_rotation: float = 0.0,
+                          affine_scale: float = 0.0, udp: bool = False):
+    """The SimCC train step (models/simcc.py), `step(state, batch,
+    draws=None)`. batch: {"images" uint8 NHWC, "joints" (B, K, 2) in BIN
+    coordinates, "visibility" (B, K)}. The 1D Gaussian bin targets are
+    rendered in the step; the device affine (K7 on the card) and the
+    color jitter run as in the heatmap step, the joints moving on the bin
+    grid. Returns {"loss", "grad_norm"} as device tensors."""
+    from tpupose_torch.losses.simcc import gaussian_1d_targets
+
+    bins_hw = tuple(bins_hw)
+    use_affine = affine_rotation > 0 or affine_scale > 0
+    draws_for = _make_draws_for(jitter_seed, use_affine, affine_rotation,
+                                affine_scale, color_jitter_strength)
+
+    def train_step(state: TrainState, batch: dict, draws: dict = None):
+        images = batch["images"]
+        if draws is None:
+            draws = draws_for(state.step, images.shape[0], images.device)
+        imgs, joints, vis = _augment(
+            images, batch["joints"], batch["visibility"], draws, use_affine,
+            bins_hw, udp, color_jitter_strength)
+        tx, ty, tw = gaussian_1d_targets(joints, vis, bins_hw, sigma)
+        model = state.model.train()
+        return _backward_update(state, loss_fn(model(imgs), (tx, ty), tw))
+
+    train_step.draws_for = draws_for
+    return train_step
+
+
+def _no_draws(step: int, batch: int, device) -> dict:
+    return {}
+
+
+def make_regression_train_step(loss_fn):
+    """The coordinate-regression (DeepPose) train step, `step(state,
+    batch, draws=None)`. batch: {"images" uint8 NHWC, "target_coords"
+    (B, K, 2) normalized, "visibility" (B, K)}."""
+
+    def train_step(state: TrainState, batch: dict, draws: dict = None):
+        model = state.model.train()
+        preds = model(normalize_images(batch["images"]))
+        return _backward_update(state, loss_fn(preds, batch["target_coords"],
+                                               batch.get("visibility")))
+
+    train_step.draws_for = _no_draws
+    return train_step
+
+
+def make_rle_train_step(loss_fn):
+    """The RLE train step (DeepPose(rle=True)), `step(state, batch,
+    draws=None)`; batch as make_regression_train_step's. The forward
+    takes the target and returns (mu, sigma, log_phi); loss_fn is
+    losses/rle.rle_loss bound to residual / q, whose NLL reaches the
+    flow, the head and the backbone in one backward."""
+
+    def train_step(state: TrainState, batch: dict, draws: dict = None):
+        model = state.model.train()
+        target = batch["target_coords"]
+        mu, sigma, log_phi = model(normalize_images(batch["images"]),
+                                   target=target)
+        return _backward_update(state, loss_fn(mu, sigma, log_phi, target,
+                                               batch.get("visibility")))
+
+    train_step.draws_for = _no_draws
+    return train_step
+
+
+def make_bottom_up_train_step(loss_fn):
+    """The bottom-up AE train step (models/bottom_up.py), `step(state,
+    batch, draws=None)`. batch: {"images" uint8 NHWC, "keypoints" (B, M,
+    K, 3) normalized, "instance_mask" (B, M)}, the yolo family's padded
+    contract. The multi-person targets and the tag push/pull terms render
+    in the step (losses/ae.ae_loss). Returns {"loss", "grad_norm",
+    "hm_loss", "pull", "push"} as device tensors."""
+
+    def train_step(state: TrainState, batch: dict, draws: dict = None):
+        model = state.model.train()
+        pred = model(normalize_images(batch["images"]))
+        loss, parts = loss_fn(pred, batch["keypoints"],
+                              batch["instance_mask"])
+        metrics = _backward_update(state, loss)
+        metrics.update({k: v.detach() for k, v in parts.items()})
+        return metrics
+
+    train_step.draws_for = _no_draws
     return train_step
 
 

@@ -1,31 +1,37 @@
-"""Trainer: the epoch loop for the heatmap family (SimpleBaseline, HRNet,
-ViTPose) and the single-stage YOLO-pose family (DINOv3Pose)
-(counterpart of tpupose/engine/trainer.py).
+"""Trainer: the epoch loop (counterpart of tpupose/engine/trainer.py)
+for every family the JAX package trains with its Trainer: heatmap
+(SimpleBaseline, HRNet, ViTPose), single-stage YOLO-pose (DINOv3Pose),
+SimCC, coordinate regression (DeepPose) and RLE, and bottom-up AE. The
+family follows loss.name, as in JAX.
 
 Ported: construction (builder, datasets and loaders, model, optimizer
-with per-group schedules, EMA, the train and eval steps, log file,
-tensorboard scalars, checkpoints), device prefetch of prepared batches,
-`iter_one_epoch` (img/s over the epoch, host sync only at the logged
-steps), loss-only `validate` (pad-mask weighting, EMA weights), metric
-`evaluate` (heatmap family: flip test + DARK + back-projection + the
-metrics of `eval.metrics` over the valid set, `eval.dump_results`; in
-the epoch loop with `eval.run_metrics`; int8 evaluation with
-`eval.int8`, the PTQ intercept, and `eval.int8_engine`, cli.serve's
-int8 engine (the R50's CudaServingEngine, else Int8Engine), both
-calibrated on the first validation batch against the current eval
-weights at every call; yolo family: `val_loss` and `evaluate_yolo`,
-YoloPosePredictor + OKS-NMS + OKS-AP), `train` with the SIGTERM/SIGINT
-checkpoint guard, `save_checkpoint` and `load_checkpoint`. Not ported
-yet (ROADMAP Queue A): the other families, distillation, pretrained
-weights, the device mesh and detection-box evaluation
-(`eval.det_boxes`).
+with per-group schedules, EMA, the family's train and eval steps, log
+file, tensorboard scalars, checkpoints), device prefetch of prepared
+batches, `iter_one_epoch` (img/s over the epoch, host sync only at the
+logged steps), loss-only `validate` (pad-mask weighting, EMA weights),
+metric `evaluate` (heatmap and SimCC families: flip test + decode +
+back-projection + the metrics of `eval.metrics` over the valid set,
+`eval.dump_results`; in the epoch loop with `eval.run_metrics`, as for
+bottom-up; int8 evaluation with `eval.int8`, the PTQ intercept, and
+`eval.int8_engine` (heatmap family only), cli.serve's int8 engine (the
+R50's CudaServingEngine, else Int8Engine), both calibrated on the first
+validation batch against the current eval weights at every call; yolo
+family: `val_loss` and `evaluate_yolo`, YoloPosePredictor + OKS-NMS +
+OKS-AP; regression and RLE: `val_loss` and `evaluate_regression`, PCK,
+PCKh (K > 9), MPJPE, AUC, EPE in source pixels; bottom-up:
+`evaluate_bottom_up`, BottomUpPredictor's AE grouping + OKS-AP, with
+`eval.int8`), `train` with the SIGTERM/SIGINT checkpoint guard,
+`save_checkpoint` and `load_checkpoint`. Not ported yet (ROADMAP Queue
+A): distillation (item 5d), pretrained weights and the device mesh (item
+12), detection-box evaluation (`eval.det_boxes`, item 11).
 
 Runs on `device` (default "cuda"; raises where CUDA is absent). On the
 card a ViTPose step runs the flash-attention kernels K8 (forward) and K8b
 (backward) in every block; `train.remat` recomputes each block, K8
 included, in the backward. A DINOv3Pose step on a ViT backbone runs K8
 in every block, and K8b too where `model.freeze_backbone` is off (a
-frozen backbone runs without a graph). `evaluate` of a
+frozen backbone runs without a graph). A heatmap or SimCC step with
+`data.device_affine` runs the warp kernel K7 once. `evaluate` of a
 SimpleBaseline-R50 at 256x192 runs the stem (K1), layer1 (K2) and
 block2_0 (K3) kernels on weights folded from the current (EMA where
 tracked) parameters at each call, and the DARK decode kernel (K4).
@@ -45,10 +51,11 @@ from tpupose_torch._device import resolve_device
 from tpupose_torch.data.loader import prefetch_to_device, to_device
 from tpupose_torch.engine.builder import Builder
 from tpupose_torch.engine.checkpoint import CheckpointManager, restore_path
-from tpupose_torch.engine.train_state import (YOLO_TARGETS, TrainState,
-                                              make_heatmap_eval_step,
-                                              make_heatmap_train_step,
-                                              make_yolo_train_step)
+from tpupose_torch.engine.train_state import (
+    YOLO_TARGETS, TrainState, make_bottom_up_train_step,
+    make_heatmap_eval_step, make_heatmap_train_step,
+    make_regression_train_step, make_rle_train_step, make_simcc_train_step,
+    make_yolo_train_step)
 from tpupose_torch.models.remat import frozen_batch_stats
 from tpupose_torch.ops.heatmap import gaussian_heatmaps
 from tpupose_torch.ops.preprocess import normalize_images
@@ -56,6 +63,13 @@ from tpupose_torch.utils.logging import FileLogger, printM, printS, printT, prin
 from tpupose_torch.utils.meters import MetricDict
 from tpupose_torch.utils.seed import set_seed
 from tpupose_torch.utils.tensorboard import SummaryWriter
+
+
+# loss.name -> the family that trains with it (JAX's Trainer rule)
+_FAMILIES = {"joints_mse": "heatmap", "joints_mse_weighted": "heatmap",
+             "pose_compute": "yolo", "v8_pose": "yolo",
+             "coord_mse": "regression", "rle": "rle", "simcc_kl": "simcc",
+             "ae": "bottom_up"}
 
 
 class Trainer:
@@ -68,14 +82,9 @@ class Trainer:
                              "to tpupose_torch yet (ROADMAP Queue A item 5)")
         if cfg.eval.run_metrics:
             self._check_eval_options()
-        if cfg.loss.name in ("pose_compute", "v8_pose"):
-            self.family = "yolo"
-        elif cfg.loss.name in ("joints_mse", "joints_mse_weighted"):
-            self.family = "heatmap"
-        else:
-            raise ValueError(f"the port trains the heatmap and yolo families; "
-                             f"loss {cfg.loss.name!r} waits (ROADMAP Queue A "
-                             f"item 9)")
+        if cfg.loss.name not in _FAMILIES:
+            raise ValueError(f"unknown loss {cfg.loss.name!r}")
+        self.family = _FAMILIES[cfg.loss.name]
         set_seed(cfg.train.seed, cfg.train.deterministic)
 
         self.model = self.builder.model()
@@ -89,21 +98,31 @@ class Trainer:
         self.state = TrainState(self.model, opt,
                                 ema_decay=cfg.train.ema_decay)
         self.loss_fn = self.builder.loss()
+        dev_aff = cfg.data.device_affine
+        aug = dict(color_jitter_strength=cfg.data.color_jitter,
+                   jitter_seed=cfg.train.seed,
+                   affine_rotation=cfg.data.rotation_factor if dev_aff
+                   else 0.0,
+                   affine_scale=cfg.data.scale_factor if dev_aff else 0.0,
+                   udp=cfg.data.udp)
         if self.family == "yolo":
             self.train_step = make_yolo_train_step(
                 self.loss_fn, mosaic_prob=cfg.data.mosaic_prob,
                 mosaic_seed=cfg.train.seed)
+        elif self.family == "simcc":
+            self.train_step = make_simcc_train_step(
+                self.loss_fn, bins_hw=tuple(cfg.model.heatmap_size),
+                sigma=cfg.data.simcc_sigma, **aug)
+        elif self.family == "regression":
+            self.train_step = make_regression_train_step(self.loss_fn)
+        elif self.family == "rle":
+            self.train_step = make_rle_train_step(self.loss_fn)
+        elif self.family == "bottom_up":
+            self.train_step = make_bottom_up_train_step(self.loss_fn)
         else:
-            dev_aff = cfg.data.device_affine
             self.train_step = make_heatmap_train_step(
-                self.loss_fn,
-                color_jitter_strength=cfg.data.color_jitter,
-                jitter_seed=cfg.train.seed,
-                heatmap_size=tuple(cfg.model.heatmap_size),
-                sigma=cfg.data.sigma,
-                affine_rotation=cfg.data.rotation_factor if dev_aff else 0.0,
-                affine_scale=cfg.data.scale_factor if dev_aff else 0.0,
-                udp=cfg.data.udp)
+                self.loss_fn, heatmap_size=tuple(cfg.model.heatmap_size),
+                sigma=cfg.data.sigma, **aug)
         self.eval_step = make_heatmap_eval_step()
         self.img_per_s = float("nan")       # the last epoch's figure
         self._evaluator = None              # built by the first evaluate()
@@ -123,23 +142,48 @@ class Trainer:
     def _batch_keys(self):
         if self.family == "yolo":
             return ("images",) + YOLO_TARGETS
+        if self.family == "bottom_up":
+            return ("images", "keypoints", "instance_mask")
         return ("images", "joints", "visibility")
+
+    def _step_batch(self, dev: dict) -> dict:
+        """A device batch of `_batch_keys` -> what the family's step takes:
+        the regression families' targets are the joints normalized by the
+        heatmap grid (B, K, 2) in [0, 1]; the others take it as it is."""
+        if self.family not in ("regression", "rle"):
+            return dev
+        Hh, Wh = self.cfg.model.heatmap_size
+        wh = torch.tensor([Wh, Hh], dtype=torch.float32, device=self.device)
+        return {"images": dev["images"], "target_coords": dev["joints"] / wh,
+                "visibility": dev["visibility"]}
 
     def _prefetched(self, loader, depth: int = 2):
         """Prepared batches on the device, `depth` ahead of the step
         (pinned host memory, non_blocking copies)."""
-        yield from prefetch_to_device(
-            ({k: b[k] for k in self._batch_keys} for b in loader),
-            self.device, depth)
+        for dev in prefetch_to_device(
+                ({k: b[k] for k in self._batch_keys} for b in loader),
+                self.device, depth):
+            yield self._step_batch(dev)
 
     def _prepare_batch(self, batch, for_eval: bool = False):
-        """Host batch -> device batch. The heatmap family ships images +
-        joints (the targets are rendered in the step), and eval renders
-        the targets here; the yolo family ships images and its padded
-        targets."""
-        dev = to_device({k: batch[k] for k in self._batch_keys}, self.device)
-        if not for_eval or self.family == "yolo":
+        """Host batch -> device batch. The heatmap and SimCC families ship
+        images + joints (the targets are rendered in the step), and eval
+        renders the targets here (2D Gaussians, or the 1D bin
+        distributions); the yolo and bottom-up families ship images and
+        their padded instances; the regression families the normalized
+        joints."""
+        dev = self._step_batch(to_device(
+            {k: batch[k] for k in self._batch_keys}, self.device))
+        if not for_eval or self.family not in ("heatmap", "simcc"):
             return dev
+        if self.family == "simcc":
+            from tpupose_torch.losses.simcc import gaussian_1d_targets
+
+            tx, ty, tw = gaussian_1d_targets(
+                dev["joints"], dev["visibility"],
+                tuple(self.cfg.model.heatmap_size), self.cfg.data.simcc_sigma)
+            return {"images": dev["images"], "target": (tx, ty),
+                    "target_weight": tw}
         target, tw = gaussian_heatmaps(dev["joints"], dev["visibility"],
                                        tuple(self.cfg.model.heatmap_size),
                                        self.cfg.data.sigma)
@@ -196,6 +240,17 @@ class Trainer:
                                         YOLO_TARGETS + ("sample_mask",)})
         return total
 
+    @torch.no_grad()
+    def _regression_val_loss(self, model, db):
+        """The regression families' val loss on an eval-mode forward; RLE
+        gives the forward the target, for the flow's log-density."""
+        target, vis = db["target_coords"], db["visibility"]
+        if self.family == "rle":
+            mu, sigma, log_phi = model.eval()(
+                normalize_images(db["images"]), target=target)
+            return self.loss_fn(mu, sigma, log_phi, target, vis)
+        return self.loss_fn(self.eval_step(model, db["images"]), target, vis)
+
     def validate(self) -> float:
         """Loss-only validation on the eval weights (the EMA when
         tracked). The padded tail batch's duplicate rows get zero target
@@ -217,6 +272,15 @@ class Trainer:
                 if padded:
                     db["instance_mask"] = db["instance_mask"] * m[:, None]
                 loss = self._yolo_val_loss(model, db)
+            elif self.family == "bottom_up":
+                if padded:
+                    db["instance_mask"] = db["instance_mask"] * m[:, None]
+                loss, _ = self.loss_fn(self.eval_step(model, db["images"]),
+                                       db["keypoints"], db["instance_mask"])
+            elif self.family in ("regression", "rle"):
+                if padded:
+                    db["visibility"] = db["visibility"] * m[:, None]
+                loss = self._regression_val_loss(model, db)
             else:
                 if padded:
                     db["target_weight"] = db["target_weight"] * m[:, None]
@@ -237,12 +301,12 @@ class Trainer:
                              "not ported to tpupose_torch yet (ROADMAP "
                              "Queue A item 11)")
 
-    def _build_eval_metrics(self):
-        """Metric objects from cfg.eval.metrics."""
+    def _build_eval_metrics(self, names=None):
+        """Metric objects from `names` (default cfg.eval.metrics)."""
         from tpupose_torch.metrics import METRICS
 
         out = []
-        for name in self.cfg.eval.metrics:
+        for name in (self.cfg.eval.metrics if names is None else names):
             if name not in METRICS:
                 raise ValueError(f"unknown eval metric {name!r}")
             if name == "pck":
@@ -280,7 +344,7 @@ class Trainer:
                 blur_kernel=self.cfg.eval.blur_kernel,
                 sigma=self.cfg.data.sigma, udp=self.cfg.data.udp,
                 device=self.device, int8_engine=engine,
-                quant_scales=quant_scales)
+                quant_scales=quant_scales, family=self.family)
         else:
             self._evaluator.refresh(model)
         return self._evaluator
@@ -293,6 +357,9 @@ class Trainer:
         e = self.cfg.eval
         if not (e.int8 or e.int8_engine):
             return None, None
+        if e.int8_engine and self.family != "heatmap":
+            raise ValueError("eval.int8_engine serves the heatmap family "
+                             f"only (got family={self.family!r})")
         try:
             first = np.asarray(next(iter(self.valid_loader))["images"])
         except StopIteration:
@@ -328,15 +395,20 @@ class Trainer:
             yield batch
 
     def evaluate(self) -> dict:
-        """Metric evaluation on the eval weights. Heatmap family: flip
-        test + DARK + back-projection + the metrics of eval.metrics (PCK,
-        MPJPE, COCO OKS-AP, ...) over the valid set; with
-        eval.dump_results also the COCO keypoint-results JSON. Yolo
-        family: `val_loss` and `evaluate_yolo`'s metrics."""
+        """Metric evaluation on the eval weights. Heatmap and SimCC
+        families: flip test + decode + back-projection + the metrics of
+        eval.metrics (PCK, MPJPE, COCO OKS-AP, ...) over the valid set;
+        with eval.dump_results also the COCO keypoint-results JSON. Yolo
+        family: `val_loss` and `evaluate_yolo`'s metrics; regression and
+        RLE: `val_loss` and `evaluate_regression`'s; bottom-up:
+        `evaluate_bottom_up`'s."""
         self._check_eval_options()
-        if self.family == "yolo":
+        if self.family == "bottom_up":
+            out = self.evaluate_bottom_up()
+        elif self.family in ("yolo", "regression", "rle"):
             out = {"val_loss": self.validate()}
-            out.update(self.evaluate_yolo())
+            out.update(self.evaluate_yolo() if self.family == "yolo"
+                       else self.evaluate_regression())
         else:
             ev = self._get_evaluator()
             out = ev.run(self._eval_batches(), self._build_eval_metrics(),
@@ -401,6 +473,114 @@ class Trainer:
         return {k: float(v) for k, v in res.items()
                 if isinstance(v, (int, float, np.floating))}
 
+    def evaluate_bottom_up(self) -> dict:
+        """Detector-free multi-person evaluation: BottomUpPredictor
+        (forward, flip-averaged heatmaps where the dataset has flip pairs
+        and eval.flip_test is on, AE grouping, all on the device) on the
+        eval weights over the valid set, scored by COCO OKS-AP against the
+        padded GT instances (the OKS area is the span of each instance's
+        labelled joints). With eval.int8 the PTQ scales are calibrated on
+        the first validation batch against the current weights."""
+        import itertools
+
+        from tpupose_torch.engine.predictor import BottomUpPredictor
+        from tpupose_torch.metrics.oks_ap import OKSAP
+
+        cfg, ecfg = self.cfg, self.cfg.eval
+        pairs = np.asarray(getattr(self.valid_loader.dataset, "flip_pairs",
+                                   np.zeros((0, 2), np.int64)))
+        model = self.state.for_eval()
+        batches = iter(self.valid_loader)
+        quant_scales = None
+        if ecfg.int8:
+            first = next(batches, None)
+            if first is not None:
+                batches = itertools.chain([first], batches)
+                quant_scales = BottomUpPredictor.calibrate_int8(
+                    model, np.asarray(first["images"]))
+        pred = BottomUpPredictor(
+            model, max_people=cfg.data.max_instances,
+            score_threshold=ecfg.ae_score_threshold,
+            tag_threshold=ecfg.ae_tag_threshold, quant_scales=quant_scales,
+            flip_test=ecfg.flip_test, flip_pairs=pairs, device=self.device)
+        H, W = cfg.data.image_size
+        wh = np.array([W, H], np.float32)
+        ap = OKSAP(num_classes=1)
+        for batch in batches:
+            pm = batch.get("pad_mask")
+            if pm is None:
+                pm = np.ones(len(batch["images"]), bool)
+            out = pred(batch["images"])
+            kpts = np.asarray(batch["keypoints"])        # normalized
+            imask = np.asarray(batch["instance_mask"]) > 0
+            for i in np.flatnonzero(pm):
+                gt_px = kpts[i, :, :, :2] * wh
+                gt_vis = kpts[i, :, :, 2]
+                # the span of the LABELLED joints: unlabelled ones sit at
+                # (0, 0) in yolo labels and would stretch the box
+                v = (gt_vis > 0)[..., None]
+                hi = np.where(v, gt_px, -np.inf).max(axis=1)
+                lo = np.where(v, gt_px, np.inf).min(axis=1)
+                span = np.nan_to_num(hi - lo, posinf=0.0, neginf=0.0)
+                ap.update(out["coords"][i], out["person_scores"][i], gt_px,
+                          gt_vis, span[:, 0] * span[:, 1],
+                          pred_valid=out["person_mask"][i],
+                          gt_valid=imask[i])
+        res = ap.compute()
+        return {k: float(v) for k, v in res.items()
+                if isinstance(v, (int, float, np.floating))}
+
+    def evaluate_regression(self) -> dict:
+        """PCK@0.2, PCKh@0.5 (MPII's head joints 8/9: only where K > 9),
+        MPJPE, AUC and EPE of eval.metrics (PCK alone where none applies;
+        oks_ap is instance-level and skipped) for the regression families
+        (DeepPose; RLE scores its mu). The normalized predictions and the
+        GT are compared in source pixels where the batch has a centre and
+        scale (back-projected through the heatmap grid as the heatmap
+        family's are), else on the heatmap grid."""
+        from tpupose_torch.ops.affine import transform_preds
+
+        cfg = self.cfg
+        Hh, Wh = cfg.model.heatmap_size
+        K = cfg.model.num_keypoints
+        names = [n for n in cfg.eval.metrics
+                 if n in ("pck", "pckh", "mpjpe", "auc", "epe")]
+        if "pckh" in names and K <= 9:
+            printW(f"eval metric 'pckh' requested but the model has only "
+                   f"{K} keypoints (PCKh needs the MPII head joints 8/9): "
+                   f"skipping it")
+            names.remove("pckh")
+        metrics = self._build_eval_metrics(names or ["pck"])
+        model = self.state.for_eval()
+        for batch in self._eval_batches():
+            preds = self.eval_step(model, torch.as_tensor(
+                batch["images"], device=self.device))
+            if isinstance(preds, tuple):                 # RLE: (mu, sigma)
+                preds = preds[0]
+            pred_hm = preds.float().cpu() * torch.tensor([Wh, Hh],
+                                                          dtype=torch.float32)
+            vis = np.asarray(batch["visibility"], np.float32)
+            pm = batch.get("pad_mask")
+            if pm is not None:
+                vis = vis * pm[:, None]
+            if "center" in batch:
+                pred_src = transform_preds(
+                    pred_hm,
+                    torch.from_numpy(np.asarray(batch["center"], np.float32)),
+                    torch.from_numpy(np.asarray(batch["scale"], np.float32)),
+                    (Hh, Wh), udp=cfg.data.udp).numpy()
+                gt_src = np.asarray(batch["joints_src"])
+            else:
+                pred_src = pred_hm.numpy()
+                gt_src = np.asarray(batch["joints"], np.float32)
+            for m in metrics:
+                m.update(pred_src, gt_src, vis)
+        out = {}
+        for m in metrics:
+            out.update({k: float(v) for k, v in m.compute().items()
+                        if isinstance(v, (int, float, np.floating))})
+        return out
+
     def train(self):
         start_epoch = self.state.step // self.steps_per_epoch
         with self._checkpoint_on_signal():
@@ -452,7 +632,8 @@ class Trainer:
                 printM(f"epoch {epoch}: val_loss={val_loss:.5f}")
                 self.file_log.log(f"epoch {epoch}: val_loss={val_loss:.5f}")
                 self.tb.add_scalar("val/loss", val_loss, self.state.step)
-                if self.family == "heatmap" and self.cfg.eval.run_metrics:
+                if (self.family in ("heatmap", "simcc", "bottom_up")
+                        and self.cfg.eval.run_metrics):
                     metrics = self.evaluate()
                     self.file_log.log(
                         f"epoch {epoch}: "

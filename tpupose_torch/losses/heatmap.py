@@ -55,3 +55,15 @@ def joints_mse_weighted_loss(pred, target, target_weight=None,
         per_px = pred.numel() / (pred.shape[0] * K)
         return 0.5 * se.sum() / (denom * per_px)
     return 0.5 * torch.mean(se)
+
+
+def coord_mse_loss(pred, target, visibility=None):
+    """Direct coordinate-regression loss (the DeepPose objective): squared
+    error of normalized joint coordinates summed over x and y, averaged
+    over the visible joints. pred/target (B, K, 2) in [0, 1];
+    visibility (B, K)."""
+    se = ((pred.float() - target.float()) ** 2).sum(-1)      # (B, K)
+    if visibility is not None:
+        m = (visibility > 0).float()
+        return (se * m).sum() / torch.clamp_min(m.sum(), 1.0)
+    return se.mean()

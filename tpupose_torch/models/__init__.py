@@ -12,6 +12,9 @@ MODELS = {
     "hrnet": "tpupose_torch.models.backbones.hrnet:HRNetPose",
     "vitpose": "tpupose_torch.models.vitpose:ViTPose",
     "dinov3_pose": "tpupose_torch.models.dinov3_pose:DINOv3Pose",
+    "deeppose": "tpupose_torch.models.deeppose:DeepPose",
+    "simcc": "tpupose_torch.models.simcc:SimCCPose",
+    "bottom_up": "tpupose_torch.models.bottom_up:BottomUpPose",
 }
 
 

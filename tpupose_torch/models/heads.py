@@ -1,5 +1,8 @@
-"""Prediction heads (counterpart of tpupose/models/heads.py; HeatmapHead
-only so far).
+"""Prediction heads (counterpart of tpupose/models/heads.py): the
+SimpleBaseline deconv HeatmapHead, DeepPose's RegressionHead and the
+ClassifyHead (conv -> GAP -> dropout -> linear). NCHW in. The layers
+flax runs in float32 (the heatmap conv, both heads' Dense) run in
+float32 outside any autocast region.
 
 flax `ConvTranspose(4x4, stride 2, padding="SAME", transpose_kernel=False)`
 is torch `ConvTranspose2d(k=4, s=2, padding=1)` with the kernel rotated
@@ -39,3 +42,36 @@ class HeatmapHead(nn.Module):
         x = self.deconv_layers(x)
         with torch.autocast(x.device.type, enabled=False):
             return self.final_layer(x.to(self.final_layer.weight.dtype))
+
+
+class RegressionHead(nn.Module):
+    """DeepPose: GAP -> linear -> (B, K, 2) normalized coordinates."""
+
+    def __init__(self, in_channels: int, num_keypoints: int):
+        super().__init__()
+        self.num_keypoints = num_keypoints
+        self.fc = nn.Linear(in_channels, 2 * num_keypoints)
+
+    def forward(self, x):
+        x = x.mean(dim=(2, 3))
+        with torch.autocast(x.device.type, enabled=False):
+            x = self.fc(x.to(self.fc.weight.dtype))
+        return x.reshape(x.shape[0], self.num_keypoints, 2)
+
+
+class ClassifyHead(nn.Module):
+    """1x1 conv (hidden) -> SiLU -> GAP -> dropout -> linear logits; the
+    caller applies the softmax."""
+
+    def __init__(self, in_channels: int, num_classes: int,
+                 hidden: int = 1280, dropout: float = 0.0):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, hidden, 1)
+        self.drop = nn.Dropout(dropout)
+        self.fc = nn.Linear(hidden, num_classes)
+
+    def forward(self, x):
+        x = torch.nn.functional.silu(self.conv(x)).mean(dim=(2, 3))
+        x = self.drop(x)
+        with torch.autocast(x.device.type, enabled=False):
+            return self.fc(x.to(self.fc.weight.dtype))

@@ -61,6 +61,16 @@ class SimpleBaseline(nn.Module):
         return y.permute(0, 2, 3, 1)
 
 
+def autocast_call(model: nn.Module, fn, x):
+    """fn(x) under the model's dtype policy: x cast to the parameters'
+    dtype where the model computes in it, else under torch.autocast to
+    `model.compute_dtype` (float32 masters computing in bf16)."""
+    if model.compute_dtype == model.param_dtype:
+        return fn(x.to(model.param_dtype))
+    with torch.autocast(x.device.type, dtype=model.compute_dtype):
+        return fn(x)
+
+
 @torch.no_grad()
 def init_like_flax(model: nn.Module, g: torch.Generator):
     """flax's default initialisers, drawn from `g` on the CPU: every conv,

@@ -161,9 +161,14 @@ def is_fast_r50(model) -> bool:
     """True where the fused serving forward covers the model: a
     SimpleBaseline with a ResNet-50 backbone that computes in bf16 (the
     kernels' type), whatever its parameters' dtype, or any model of that
-    kind on the CPU (where the plain versions run in any dtype)."""
+    kind on the CPU (where the plain versions run in any dtype). The
+    other families on a ResNet-50 (SimCC, DeepPose, bottom-up) have
+    other heads and take their own forward."""
+    from tpupose_torch.models.simple_baseline import SimpleBaseline
+
     p = next(model.parameters())
-    return (getattr(model, "backbone_name", None) == "resnet50"
+    return (isinstance(model, SimpleBaseline)
+            and model.backbone_name == "resnet50"
             and (compute_dtype(model) == torch.bfloat16
                  or p.device.type == "cpu"))
 

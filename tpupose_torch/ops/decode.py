@@ -13,17 +13,21 @@ from __future__ import annotations
 import torch
 
 
+def _first_argmax(p):
+    """Index of the first maximum along the last axis (jnp.argmax's tie
+    rule; torch.max does not document which index it returns on ties)."""
+    n = p.shape[-1]
+    idx = torch.arange(n, device=p.device)
+    return torch.where(p == p.amax(-1, keepdim=True), idx, n).amin(-1)
+
+
 def get_max_preds(heatmaps: torch.Tensor):
     """Argmax decode. (B, K, H, W) -> coords (B, K, 2) xy float32,
     maxvals (B, K). Ties go to the first index in row-major order;
     zero-confidence maps (max <= 0) give (-1, -1)."""
     B, K, H, W = heatmaps.shape
     flat = heatmaps.reshape(B, K, H * W)
-    maxvals, idx = flat.max(dim=-1)
-    # torch.max's index on ties is not documented as the first one;
-    # recover it explicitly (jnp.argmax returns the first)
-    n = torch.arange(H * W, device=flat.device)
-    idx = torch.where(flat == maxvals[..., None], n, H * W).amin(dim=-1)
+    maxvals, idx = flat.amax(dim=-1), _first_argmax(flat)
     x = (idx % W).to(torch.float32)
     y = (idx // W).to(torch.float32)
     coords = torch.stack([x, y], dim=-1)
@@ -33,17 +37,22 @@ def get_max_preds(heatmaps: torch.Tensor):
 
 
 def _gather_hm(heatmaps, xi, yi):
-    """heatmaps (B, K, H, W); xi, yi int64 (B, K) -> values, clamped."""
+    """heatmaps (B, K, H, W); xi, yi int64 (B, K) or (B, K, P) (bottom-up
+    candidates, gathered along the flattened map) -> values, clamped."""
     B, K, H, W = heatmaps.shape
     xi = xi.clamp(0, W - 1)
     yi = yi.clamp(0, H - 1)
     flat = heatmaps.reshape(B, K, H * W)
-    return torch.gather(flat, -1, (yi * W + xi)[..., None])[..., 0]
+    idx = yi * W + xi
+    if idx.dim() == flat.dim() - 1:
+        return torch.gather(flat, -1, idx[..., None])[..., 0]
+    return torch.gather(flat, -1, idx)
 
 
 def quarter_offset_refine(heatmaps, coords):
     """Classic MSRA +/-0.25 px shift toward the higher neighbour; border
-    peaks stay unshifted."""
+    peaks stay unshifted. coords (B, K, 2), or (B, K, P, 2) for the
+    bottom-up candidates (ops/ae_decode.py)."""
     xi = coords[..., 0].to(torch.int64)
     yi = coords[..., 1].to(torch.int64)
     dx = _gather_hm(heatmaps, xi + 1, yi) - _gather_hm(heatmaps, xi - 1, yi)
@@ -166,3 +175,58 @@ def merge_flip(heatmaps, flipped_heatmaps, flip_pairs, shift: bool = True):
     is already the exact mirror."""
     return 0.5 * (heatmaps + flip_back(flipped_heatmaps, flip_pairs,
                                        shift=shift))
+
+
+# ---------------------------------------------------------------------------
+# SimCC (1D coordinate classification) decode: models/simcc.py
+# ---------------------------------------------------------------------------
+
+def _parabolic_1d(logp, idx):
+    """3-point parabolic sub-bin refinement on log-probabilities: logp
+    (..., N), idx (...) the argmax -> offset in [-0.5, 0.5], the vertex of
+    the parabola through idx-1, idx, idx+1; 0 at the borders."""
+    n = logp.shape[-1]
+    i0 = (idx - 1).clamp(0, n - 1)
+    i2 = (idx + 1).clamp(0, n - 1)
+    f0 = torch.gather(logp, -1, i0[..., None])[..., 0]
+    f1 = torch.gather(logp, -1, idx[..., None])[..., 0]
+    f2 = torch.gather(logp, -1, i2[..., None])[..., 0]
+    denom = f0 - 2.0 * f1 + f2
+    ok = denom.abs() > 1e-9
+    off = torch.where(ok, 0.5 * (f0 - f2)
+                      / torch.where(ok, denom, torch.ones_like(denom)),
+                      torch.zeros_like(denom))
+    off = off.clamp(-0.5, 0.5)
+    interior = (idx > 0) & (idx < n - 1)
+    return torch.where(interior, off, torch.zeros_like(off))
+
+
+def decode_simcc(x_logits, y_logits, refine: bool = True):
+    """Per-axis softmax -> argmax (+ parabolic sub-bin) -> coords in BIN
+    units; score sqrt(px * py) of the two axis peaks. x_logits (B, K,
+    Wb), y_logits (B, K, Hb) -> coords (B, K, 2) (x, y), scores (B, K)."""
+    px = torch.softmax(x_logits.float(), -1)
+    py = torch.softmax(y_logits.float(), -1)
+    xi, yi = _first_argmax(px), _first_argmax(py)
+    x, y = xi.float(), yi.float()
+    if refine:
+        x = x + _parabolic_1d(torch.log(px.clamp_min(1e-12)), xi)
+        y = y + _parabolic_1d(torch.log(py.clamp_min(1e-12)), yi)
+    sx = torch.gather(px, -1, xi[..., None])[..., 0]
+    sy = torch.gather(py, -1, yi[..., None])[..., 0]
+    return torch.stack([x, y], -1), torch.sqrt(sx * sy)
+
+
+def simcc_flip_back(x_logits_f, y_logits_f, flip_pairs, shift_bins: int = 0):
+    """Un-flip SimCC logits of a horizontally flipped forward: reverse the
+    x-bin axis, shift it left by `shift_bins` (edge-padded; round(r) - 1
+    for split ratio r cancels the mirror's bias exactly, 0 under udp), and
+    swap the left/right keypoint channels of both axes."""
+    xl = x_logits_f.flip(-1)
+    if shift_bins > 0:
+        pad = xl[..., -1:].expand(*xl.shape[:-1], shift_bins)
+        xl = torch.cat([xl[..., shift_bins:], pad], dim=-1)
+    perm = list(range(xl.shape[1]))
+    for a, b in (tuple(int(v) for v in p) for p in flip_pairs):
+        perm[a], perm[b] = b, a
+    return xl[:, perm], y_logits_f[:, perm]

@@ -9,7 +9,9 @@ tpupose/utils/convert.py).
 `from_flax_vitpose` a flax ViTPose tree onto
 `tpupose_torch.models.vitpose.ViTPose`, and `from_flax_dinov3_pose` a
 flax DINOv3Pose tree (ConvNeXt or ViT backbone) onto
-`tpupose_torch.models.dinov3_pose.DINOv3Pose`. The first two serve two
+`tpupose_torch.models.dinov3_pose.DINOv3Pose`; `from_flax_deeppose`,
+`from_flax_simcc` and `from_flax_bottom_up` map DeepPose (RLE head and
+flow included), SimCCPose and BottomUpPose trees. The first two serve two
 uses: giving the port the JAX package's weights (serving parity, and
 the same start for a training comparison), and mapping the params and
 batch stats (or the EMA params) that JAX reached after some train steps
@@ -95,6 +97,20 @@ def _block(sd: dict, t: str, bp: Mapping, bs: Mapping, paths, path: str):
             bs[f"BatchNorm_{n_convs}"])
 
 
+def _resnet(sd: dict, rp: Mapping, rs: Mapping, paths,
+            path: str = "ResNet_0"):
+    """A flax ResNet subtree -> the port's ResNet under `backbone.`."""
+    _conv(sd, "backbone.conv1", rp["Conv_0"], paths, f"{path}/Conv_0")
+    _bn(sd, "backbone.bn1", rp["BatchNorm_0"], rs["BatchNorm_0"])
+    kind, sizes = _stage_sizes(rp)
+    bidx = 0
+    for li, size in enumerate(sizes):
+        for j in range(size):
+            _block(sd, f"backbone.layer{li + 1}.{j}", rp[f"{kind}_{bidx}"],
+                   rs[f"{kind}_{bidx}"], paths, f"{path}/{kind}_{bidx}")
+            bidx += 1
+
+
 def from_flax_simple_baseline(variables: Mapping,
                               paths: dict | None = None) -> dict:
     """flax SimpleBaseline {params, batch_stats} (numpy or jax arrays) ->
@@ -103,19 +119,8 @@ def from_flax_simple_baseline(variables: Mapping,
     `paths`, when given, is filled with {port conv / deconv module name:
     flax module path} (the keys of tpupose's PTQ scales)."""
     P, S = variables["params"], variables["batch_stats"]
-    rp, rs = P["ResNet_0"], S["ResNet_0"]
     sd: dict = {}
-    _conv(sd, "backbone.conv1", rp["Conv_0"], paths, "ResNet_0/Conv_0")
-    _bn(sd, "backbone.bn1", rp["BatchNorm_0"], rs["BatchNorm_0"])
-
-    kind, sizes = _stage_sizes(rp)
-    bidx = 0
-    for li, size in enumerate(sizes):
-        for j in range(size):
-            _block(sd, f"backbone.layer{li + 1}.{j}", rp[f"{kind}_{bidx}"],
-                   rs[f"{kind}_{bidx}"], paths, f"ResNet_0/{kind}_{bidx}")
-            bidx += 1
-
+    _resnet(sd, P["ResNet_0"], S["ResNet_0"], paths)
     _heatmap_head(sd, P["HeatmapHead_0"], S["HeatmapHead_0"], paths,
                   "HeatmapHead_0")
     return sd
@@ -141,8 +146,18 @@ def from_flax_hrnet(variables: Mapping, paths: dict | None = None) -> dict:
     counts are read off the tree. `paths` as in
     from_flax_simple_baseline."""
     P, S = variables["params"], variables["batch_stats"]
-    hp, hs = P["HRNet_0"], S["HRNet_0"]
     sd: dict = {}
+    _hrnet(sd, P["HRNet_0"], S["HRNet_0"], paths)
+    sd["final_layer.weight"] = conv_weight(P["Conv_0"]["kernel"])
+    sd["final_layer.bias"] = _t(P["Conv_0"]["bias"])
+    if paths is not None:
+        paths["final_layer"] = "Conv_0"
+    return sd
+
+
+def _hrnet(sd: dict, hp: Mapping, hs: Mapping, paths):
+    """A flax HRNet subtree (`HRNet_0`) -> the port's HRNet under
+    `backbone.` (the numbering of from_flax_hrnet)."""
 
     def cb(prefix, idx, scope_p=hp, scope_s=hs, path="HRNet_0"):
         _convbn(sd, prefix, scope_p[f"_ConvBN_{idx}"],
@@ -185,11 +200,6 @@ def from_flax_hrnet(variables: Mapping, paths: dict | None = None) -> dict:
                             cb(f"{t}.{step}", c, fp, fs, fpath)
                             c += 1
             m += 1
-    sd["final_layer.weight"] = conv_weight(P["Conv_0"]["kernel"])
-    sd["final_layer.bias"] = _t(P["Conv_0"]["bias"])
-    if paths is not None:
-        paths["final_layer"] = "Conv_0"
-    return sd
 
 
 def _t(a) -> torch.Tensor:
@@ -387,4 +397,72 @@ def from_flax_dinov3_pose(variables: Mapping,
             _with_bias(sd, f"head.{kind}.{lvl}.out", bp["Conv_0"], paths,
                        f"{bpath}/Conv_0")
         lvl += 1
+    return sd
+
+
+def _backbone(sd: dict, P: Mapping, S: Mapping, paths):
+    """The flax tree's ResNet_0 or HRNet_0 -> the port's `backbone.`."""
+    if "HRNet_0" in P:
+        _hrnet(sd, P["HRNet_0"], S["HRNet_0"], paths)
+    else:
+        _resnet(sd, P["ResNet_0"], S["ResNet_0"], paths)
+
+
+def from_flax_deeppose(variables: Mapping, paths: dict | None = None) -> dict:
+    """flax DeepPose {params, batch_stats} -> state dict for
+    tpupose_torch's DeepPose (float32 CPU tensors): the ResNet, and
+    either RegressionHead_0/Dense_0 (`head.fc`) or, for rle=True, the
+    `rle_head` Dense and the flow's flow/_Coupling_i/Dense_j
+    (`flow.couplings.i.layers.j`). `paths` as in
+    from_flax_simple_baseline (dense layers included)."""
+    P, S = variables["params"], variables["batch_stats"]
+    sd: dict = {}
+    _backbone(sd, P, S, paths)
+    if "rle_head" in P:
+        _with_bias(sd, "rle_head", P["rle_head"], paths, "rle_head",
+                   dense=True)
+        fp, i = P["flow"], 0
+        while f"_Coupling_{i}" in fp:
+            for j in range(4):
+                _with_bias(sd, f"flow.couplings.{i}.layers.{j}",
+                           fp[f"_Coupling_{i}"][f"Dense_{j}"], paths,
+                           f"flow/_Coupling_{i}/Dense_{j}", dense=True)
+            i += 1
+    else:
+        _with_bias(sd, "head.fc", P["RegressionHead_0"]["Dense_0"], paths,
+                   "RegressionHead_0/Dense_0", dense=True)
+    return sd
+
+
+def from_flax_simcc(variables: Mapping, paths: dict | None = None) -> dict:
+    """flax SimCCPose {params, batch_stats} (ResNet_0 or HRNet_0 backbone)
+    -> state dict for tpupose_torch's SimCCPose: SimCCHead_0's kpt_conv,
+    and mlp_x / mlp_y with their (h*w, bins) kernels transposed. `paths`
+    as in from_flax_simple_baseline (dense layers included)."""
+    P, S = variables["params"], variables["batch_stats"]
+    sd: dict = {}
+    _backbone(sd, P, S, paths)
+    hp = P["SimCCHead_0"]
+    _with_bias(sd, "head.kpt_conv", hp["kpt_conv"], paths,
+               "SimCCHead_0/kpt_conv")
+    for name in ("mlp_x", "mlp_y"):
+        _with_bias(sd, f"head.{name}", hp[name], paths,
+                   f"SimCCHead_0/{name}", dense=True)
+    return sd
+
+
+def from_flax_bottom_up(variables: Mapping,
+                        paths: dict | None = None) -> dict:
+    """flax BottomUpPose {params, batch_stats} -> state dict for
+    tpupose_torch's BottomUpPose: HRNet_0 + Conv_0 (`final_layer`), or
+    ResNet_0 + HeatmapHead_0 (`head`). `paths` as in
+    from_flax_simple_baseline."""
+    P, S = variables["params"], variables["batch_stats"]
+    sd: dict = {}
+    _backbone(sd, P, S, paths)
+    if "HRNet_0" in P:
+        _with_bias(sd, "final_layer", P["Conv_0"], paths, "Conv_0")
+    else:
+        _heatmap_head(sd, P["HeatmapHead_0"], S["HeatmapHead_0"], paths,
+                      "HeatmapHead_0")
     return sd
