@@ -218,6 +218,32 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
      config with eval.int8 (calibrated on the first image); 4 annotated
      files each (under the inputs' names, as JAX writes them); the
      phase's seconds;
+  18. (after 17, in a sixth child process; `python3 chip_smoke.py
+     --phase18 <out.json>` runs it alone) the training leftovers and
+     detection-box evaluation on simple_baseline.yaml (R50 256x192, B=64,
+     device affine): 18a 8 distilled steps through Trainer from a
+     HRNet-W32 teacher (hrnet_w32.yaml) saved by the port's
+     CheckpointManager and read back through train.distill_ckpt
+     "<dir>@best": exactly one K7 launch a step, finite task and
+     distillation losses, the teacher its checkpoint, frozen; step img/s
+     with and without the teacher, peak memory, each step's device busy
+     ms and idle share under torch.profiler; 18b grad_accum_steps 4
+     with lamb, 8 steps: every parameter bit-unchanged after mini-steps
+     1-3 and 5-7 and changed after 4 and 8, one K7 launch a step; one R50
+     step under each of the seven optax rules (lamb, lars, lion, fromage,
+     yogi, adamaxw, nadamw) with its update ms; 18c `python -m
+     tpupose_torch.cli.tools average-ckpts` over 18b's checkpoints, the
+     mean loaded by restore_for_eval and predicting on K1-K4 (2/6/2/1
+     launches a flip batch); 18d Trainer.evaluate_detections on a seeded
+     COCO-format set of 128 JPEGs and a seeded detection JSON (each GT
+     box jittered, a false positive and a below-threshold detection an
+     image; ~310 detections, 5 batches and a tail), after a one-batch
+     warm-up: exactly 2 K1, 6 K2, 2 K3 and 1 K4 launches per det-eval
+     batch; against the autocast plain route on the same crops every
+     joint's score within 0.06 of the largest, the median joint within 1
+     crop px, the det_* AP within 0.02; the call's img/s, the batch
+     loop's steady img/s and the host tail; then evaluate() with
+     eval.det_boxes; the phase's seconds;
   9. device times under torch.profiler, last: K8, its plain version and
      SDPA at both shapes (their `ms`, `plain_ms`, `library_ms`: a K8
      launch is shorter than its wrapper's Python, so CUDA events around
@@ -233,12 +259,12 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
      {"ok": true, "device": {...}}.
 
 Phases run in the order 1-5, 7, 3d, 3e, 4c, 8, 10, 11, 12-14, 15, 16, 17,
-9, 6. Exits
+18, 9, 6. Exits
 non-zero without printing a result where CUDA is unavailable. Needs one
 card; imports nothing of JAX. Writes only under build/ of the checkout
 (the kernels, the native host-IO library, the phase-7, phase-10,
-phase-12, phase-16 and phase-17 checkpoints and the phase-11, phase-12,
-phase-15 and phase-17 data, removed at the end). Each phase from 12 on prints its
+phase-12, phase-16, phase-17 and phase-18 checkpoints and the phase-11,
+phase-12, phase-15, phase-17 and phase-18 data, removed at the end). Each phase from 12 on prints its
 seconds.
 """
 
@@ -2992,6 +3018,503 @@ def families_main(out_path: Path) -> int:
     return 0
 
 
+P18_DIR = ROOT / "build" / "chip_smoke_phase18"
+# the seven rules optax builds from the lr (and weight_decay) alone
+P18_RULES = ("lamb", "lars", "lion", "fromage", "yogi", "adamaxw", "nadamw")
+
+
+def _p18_trainer(label: str, over: dict, base=None):
+    """Trainer(device="cuda") on simple_baseline.yaml (SimpleBaseline-R50
+    256x192, B=64) with device affine + `over`, output under P18_DIR."""
+    from tpupose_torch.engine.trainer import Trainer
+
+    cfg = _cfg(base or SIMPLE_BASELINE, {
+        "data.device_affine": "true",
+        "train.output_dir": str(P18_DIR / label), **over})
+    return Trainer(cfg, device="cuda")
+
+
+def _p18_params(model):
+    return [p.detach().clone() for p in model.parameters()]
+
+
+def _p18_busy(step_fn, state, batch, n=3):
+    """One step's device busy ms (the union of the kernels' and copies'
+    intervals under torch.profiler, over n steps), its device events,
+    and its wall ms on the host clock outside the profiler; None for the
+    first two where the profiler recorded no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step_fn(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step_fn(state, batch)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0) / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step_fn(state, batch)
+        torch.cuda.synchronize()
+    iv = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False))
+    busy, end = 0.0, -1.0
+    for a, b in iv:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    if not iv:
+        return {"wall_ms": wall, "busy_ms": None, "events": None}
+    return {"wall_ms": wall, "busy_ms": busy / 1e3 / n,
+            "events": len(iv) / n, "idle_share": 1 - busy / 1e3 / n / wall}
+
+
+def p18_distill(results, card: str):
+    """18a: distillation. A HRNet-W32 256x192 teacher (random weights, its
+    BatchNorm statistics calibrated on synthetic crops) saved by the
+    port's CheckpointManager (best slot) and read back through
+    train.distill_ckpt "<dir>@best"; 8 distilled R50 steps through
+    Trainer.train (2 epochs of 4): exactly one K7 launch a step, finite
+    task and distillation losses, the teacher equal to its checkpoint and
+    unchanged; the step's img/s with and without the teacher, its peak
+    memory, and its device busy and idle time under torch.profiler."""
+    from tpupose_torch.engine.builder import Builder
+    from tpupose_torch.engine.checkpoint import CheckpointManager
+    from tpupose_torch.engine.train_state import TrainState
+    from tpupose_torch.ops.cuda_warp import affine_warp
+
+    tcfg_path = P18_DIR / "hrnet_w32.yaml"                  # JSON is YAML
+    tcfg_path.write_text(json.dumps(HRNET_W32))
+    from tpupose_torch.data.synthetic import SyntheticTopDownDataset
+    from tpupose_torch.ops.preprocess import normalize_images
+
+    tb = Builder(_cfg(HRNET_W32, {}), "cuda")
+    tm = tb.model()
+    dev = next(tm.parameters()).device
+    # the teacher's BatchNorm statistics calibrated by 30 train-mode
+    # forwards on synthetic crops: at the init's (mean 0, var 1) its
+    # eval-mode heatmaps are ~1e3 and the distillation term would swamp
+    # the task loss by 1e7
+    n = SIMPLE_BASELINE["train"]["batch_size"]
+    ds = SyntheticTopDownDataset(n, (H, W), (64, 48), K, seed=2)
+    x = normalize_images(torch.from_numpy(
+        np.stack([ds[i]["image"] for i in range(n)])).to(dev))
+    with torch.no_grad():
+        tm.train()
+        for _ in range(30):
+            tm(x)
+    tm.eval()
+    t_ckpt = P18_DIR / "teacher_ckpt"
+    CheckpointManager(str(t_ckpt)).save(
+        0, TrainState(tm, tb.optimizer(tm, 1)), metric=1.0, force=True)
+    want = {k: v.clone() for k, v in tm.state_dict().items()}
+    del tm, tb
+    tr = _p18_trainer("distill", {"train.epochs": "2",
+                                  "train.distill_cfg": str(tcfg_path),
+                                  "train.distill_ckpt": f"{t_ckpt}@best"})
+    teacher = tr.teacher
+    if teacher is None or teacher.training or any(
+            p.requires_grad for p in teacher.parameters()) or any(
+            not torch.equal(v, want[k])
+            for k, v in teacher.state_dict().items()):
+        raise AssertionError("phase 18a: the teacher is not the frozen "
+                             "checkpoint")
+    log_, step_fn = _recorded_steps(tr, (affine_warp,))
+    torch.cuda.synchronize()
+    affine_warp.launches = 0
+    t0 = time.perf_counter()
+    tr.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    k7 = affine_warp.launches
+    per_step = {k: [float(m[k]) for m, _ in log_] for k in log_[0][0]}
+    bad = [k for k, v in per_step.items() if not np.all(np.isfinite(v))]
+    if (tr.state.step != 8 or len(log_) != 8 or k7 != 8 or bad
+            or any(c != (1,) for _, c in log_)
+            or not {"task_loss", "kd_loss"} <= set(per_step)):
+        raise AssertionError(f"phase 18a: {tr.state.step} steps, K7 "
+                             f"launches {k7} ({[c for _, c in log_]}), "
+                             f"non-finite {bad}, metrics {sorted(per_step)}")
+    if any(not torch.equal(v, want[k])
+           for k, v in teacher.state_dict().items()):
+        raise AssertionError("phase 18a: training moved the teacher")
+    from tpupose_torch.engine.train_state import make_heatmap_train_step
+
+    db = next(iter(tr._prefetched(tr.train_loader)))
+    ips, peak = _step_rate(step_fn, tr.state, db)
+    plain = make_heatmap_train_step(
+        tr.loss_fn, heatmap_size=tuple(tr.cfg.model.heatmap_size),
+        sigma=tr.cfg.data.sigma, affine_rotation=tr.cfg.data.rotation_factor,
+        affine_scale=tr.cfg.data.scale_factor,
+        color_jitter_strength=tr.cfg.data.color_jitter,
+        jitter_seed=tr.cfg.train.seed)
+    ips0, peak0 = _step_rate(plain, tr.state, db)
+    busy = {label: _p18_busy(fn, tr.state, db)
+            for label, fn in (("teacher", step_fn), ("no_teacher", plain))}
+    log(f"phase 18a distillation (R50 student, HRNet-W32 teacher from its "
+        f"@best checkpoint, B={db['images'].shape[0]}, device affine) on "
+        f"{card}: 8 steps in "
+        f"{train_s:.1f} s, K7 launches {k7} (one a step); per step "
+        f"{json.dumps({k: [round(x, 6) for x in v] for k, v in per_step.items()})}"
+        f"; step img/s with the teacher {ips:.1f} (peak {peak:.2f} GiB), "
+        f"without {ips0:.1f} (peak {peak0:.2f} GiB); under torch.profiler "
+        f"(3 steps) {json.dumps(busy)}")
+    results["affine_warp"]["launches_distill"] = k7
+    out = {"steps": 8, "k7_launches": k7, "step_img_per_s": ips,
+           "peak_gib": peak, "no_teacher_img_per_s": ips0,
+           "no_teacher_peak_gib": peak0, "train_seconds": train_s,
+           "device": busy,
+           "task_loss": per_step["task_loss"],
+           "kd_loss": per_step["kd_loss"]}
+    del tr, teacher
+    torch.cuda.empty_cache()
+    return out
+
+
+def p18_accumulate(results, card: str):
+    """18b: grad_accum_steps 4 with lamb, 8 steps through Trainer.train
+    (2 epochs of 4, a checkpoint after each): every parameter
+    bit-unchanged after mini-steps 1-3 and 5-7 and changed after 4 and
+    8, one K7 launch a step; then one R50 step under each of the seven
+    optax rules: finite, with the rule's update ms (CUDA sync, host
+    clock). Returns (readings, the checkpoint directory)."""
+    from tpupose_torch.configs.default import OptimizerConfig
+    from tpupose_torch.engine.builder import is_backbone_path
+    from tpupose_torch.engine.optimizers import make_optimizer
+    from tpupose_torch.engine.train_state import TrainState
+    from tpupose_torch.ops.cuda_warp import affine_warp
+
+    # no warmup: with 4 mini-steps an update and 4 steps an epoch, the
+    # yaml's 1 warmup epoch is 1 update, made at lr 0
+    tr = _p18_trainer("accum", {"train.epochs": "2",
+                                "train.warmup_epochs": "0",
+                                "train.grad_accum_steps": "4",
+                                "optimizer.name": "lamb"})
+    step_fn = tr.train_step
+    moved, launches = [], []
+
+    def checking(state, batch, draws=None):
+        before = _p18_params(state.model)
+        n0 = affine_warp.launches
+        m = step_fn(state, batch, draws)
+        launches.append(affine_warp.launches - n0)
+        same = [torch.equal(a, p.detach())
+                for a, p in zip(before, state.model.parameters())]
+        moved.append("none" if all(same) else
+                     "all" if not any(same) else f"{same.count(False)}")
+        if not (torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])):
+            raise AssertionError("phase 18b: a metric is not finite")
+        return m
+
+    tr.train_step = checking
+    affine_warp.launches = 0
+    tr.train()
+    torch.cuda.synchronize()
+    want = ["none", "none", "none", "all"] * 2
+    k7 = affine_warp.launches
+    if moved != want or launches != [1] * 8 or k7 != 8 \
+            or tr.state.optimizer.count != 2:
+        raise AssertionError(f"phase 18b: parameters moved {moved} (want "
+                             f"{want}), K7 {launches}, updates "
+                             f"{tr.state.optimizer.count}")
+    log(f"phase 18b grad_accum_steps 4 (lamb, R50, "
+        f"B={tr.cfg.train.batch_size}) on {card}: "
+        f"parameters after each of 8 mini-steps: {moved}; K7 launches "
+        f"{launches}; updates {tr.state.optimizer.count}")
+    results["affine_warp"]["launches_accum"] = k7
+    db = next(iter(tr._prefetched(tr.train_loader)))
+    rules = {}
+    for name in P18_RULES:
+        opt = make_optimizer(OptimizerConfig(name=name, lr=1e-3),
+                             tr.model.named_parameters(),
+                             is_head=lambda n: not is_backbone_path(n),
+                             grad_clip_norm=10.0)
+        state = TrainState(tr.model, opt)
+        m = step_fn(state, db)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):              # the update alone, on the step's grads
+            t0 = time.perf_counter()
+            opt.step()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        finite = bool(torch.isfinite(m["loss"])) and all(
+            bool(torch.isfinite(p).all()) for p in tr.model.parameters())
+        if not finite:
+            raise AssertionError(f"phase 18b: {name} step not finite")
+        rules[name] = {"loss": float(m["loss"]),
+                       "update_ms": statistics.median(times)}
+    log(f"phase 18b one R50 step (B={db['images'].shape[0]}) under each "
+        f"optax rule, update ms "
+        f"(median of 3, host clock around a synchronize): "
+        f"{json.dumps({k: round(v['update_ms'], 3) for k, v in rules.items()})}")
+    ckpt = P18_DIR / "accum" / tr.cfg.train.experiment / "ckpt"
+    del tr
+    torch.cuda.empty_cache()
+    return {"moved": moved, "k7_launches": k7, "rules": rules}, ckpt
+
+
+def p18_swa(results, ckpt: Path, card: str):
+    """18c: `python -m tpupose_torch.cli.tools average-ckpts` over 18b's
+    periodic checkpoints (steps 4 and 8); the average loads through
+    restore_for_eval (its parameters the mean of the two) and predicts
+    32 crops on the K1-K4 route (2/6/2/1 launches for the flip batch,
+    finite coordinates)."""
+    from tpupose_torch.engine.builder import Builder
+    from tpupose_torch.engine.checkpoint import restore_for_eval
+    from tpupose_torch.engine.evaluator import TopDownEvaluator
+
+    cfg_over = {"optimizer.name": "lamb", "train.grad_accum_steps": "4"}
+    cfg_path = P18_DIR / "swa.yaml"
+    base = json.loads(json.dumps(SIMPLE_BASELINE))
+    base["optimizer"]["name"] = "lamb"
+    base["train"]["grad_accum_steps"] = 4
+    cfg_path.write_text(json.dumps(base))
+    out = P18_DIR / "swa"
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "tpupose_torch.cli.tools",
+                    "average-ckpts", "--cfg", str(cfg_path), "--ckpt",
+                    str(ckpt), "--out", str(out)], check=True, timeout=300,
+                   cwd=str(ROOT))
+    tool_s = time.perf_counter() - t0
+    builder = Builder(_cfg(SIMPLE_BASELINE, cfg_over), "cuda")
+    model = restore_for_eval(builder, builder.model(), str(out))
+    dev = next(model.parameters()).device
+    sds = [torch.load(ckpt / "periodic" / f"{s}.pt", map_location=dev,
+                      weights_only=True)["model"] for s in (4, 8)]
+    for k, v in model.state_dict().items():
+        if v.is_floating_point():
+            mean = (sds[0][k].float() + sds[1][k].float()) / 2
+            if not torch.allclose(v.float(), mean, rtol=0,
+                                  atol=1e-6 * float(mean.abs().max()) + 1e-30):
+                raise AssertionError(f"phase 18c: {k} is not the mean")
+    ev = TopDownEvaluator(model, (64, 48), flip_test=True, device=dev)
+    wrappers = _r50_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    crops = torch.randint(0, 256, (32, H, W, 3), dtype=torch.uint8,
+                          device=dev, generator=torch.Generator(device=dev)
+                          .manual_seed(18))
+    c = torch.tensor([[96.0, 128.0]], device=dev).repeat(32, 1)
+    sc = torch.tensor([[192.0, 256.0]], device=dev).repeat(32, 1)
+    coords, scores = ev.step(crops, c, sc)
+    torch.cuda.synchronize()
+    counts = {n: w.launches for n, w in wrappers.items()}
+    if counts != {"stem_pool": 2, "layer1": 6, "bridge": 2,
+                  "dark_decode": 1} or coords.shape != (32, K, 2) or not \
+            bool(torch.isfinite(coords).all()):
+        raise AssertionError(f"phase 18c: the averaged model's predict: "
+                             f"launches {counts}, coords {coords.shape}")
+    log(f"phase 18c average-ckpts over steps 4 and 8 ({tool_s:.1f} s, the "
+        f"process's start and the model's build included) on {card}: the "
+        f"mean within 1e-6, loaded by restore_for_eval; a flip predict of "
+        f"32 crops, launches {counts}")
+    del model, ev
+    torch.cuda.empty_cache()
+    return {"tool_seconds": tool_s, "launches": counts}
+
+
+def _p18_detections(root: Path, seed: int = 18) -> Path:
+    """A seeded COCO detection-results JSON for write_coco_set's set:
+    each kept GT box jittered by up to 10% of its size, one false
+    positive an image, one detection below the score threshold (0.1)."""
+    rng = np.random.RandomState(seed)
+    ann = json.loads((root / "annotations"
+                      / "person_keypoints_val2017.json").read_text())
+    dets = []
+    for a in ann["annotations"]:
+        if a["iscrowd"] or a["num_keypoints"] == 0:
+            continue
+        x, y, w, h = a["bbox"]
+        j = rng.uniform(-0.1, 0.1, 4) * [w, h, w, h]
+        dets.append({"image_id": a["image_id"], "category_id": 1,
+                     "bbox": [x + j[0], y + j[1], w + j[2], h + j[3]],
+                     "score": float(rng.uniform(0.5, 1.0))})
+    for im in ann["images"]:
+        dets.append({"image_id": im["id"], "category_id": 1,
+                     "bbox": [float(rng.uniform(0, 500)),
+                              float(rng.uniform(0, 250)), 120.0, 220.0],
+                     "score": float(rng.uniform(0.2, 0.5))})
+        dets.append({"image_id": im["id"], "category_id": 1,
+                     "bbox": [10.0, 10.0, 100.0, 200.0], "score": 0.05})
+    path = root / "dets.json"
+    path.write_text(json.dumps(dets))
+    return path
+
+
+P18_IMAGES = 128          # ~310 detections kept: 5 batches of 64 and a tail
+P18_SCORE_REL = 0.06      # phase 13's bound on bf16 heatmaps, max-relative
+P18_MEDIAN_PX = 1.0       # crop px (a quarter of a heatmap px)
+
+
+def _p18_record(ev):
+    """Wrap ev.step: each call's host time and its (coords, scores,
+    scale) on the device are appended to the returned dict's lists; the
+    returned function takes the wrapper off."""
+    step = ev.step
+    rec = {"t": [], "out": []}
+
+    def recording(images, center, scale):
+        rec["t"].append(time.perf_counter())
+        coords, scores = step(images, center, scale)
+        rec["out"].append((coords.clone(), scores.clone(), scale.clone()))
+        return coords, scores
+
+    ev.step = recording
+    return rec, lambda: delattr(ev, "step")
+
+
+def p18_det_eval(results, card: str):
+    """18d: Trainer.evaluate_detections (eval.det_boxes) on R50 256x192
+    (flip, DARK, bf16 autocast) over a seeded COCO-format set of
+    P18_IMAGES JPEGs and its detections (PIL crops where the native
+    runtime does not build). A one-batch run warms the evaluator and the
+    loader; then the kernel route must launch exactly 2 K1, 6 K2, 2 K3
+    and 1 K4 per batch. The route gate holds it against the autocast
+    plain route on the same crops, detection by detection: every joint's
+    score (the flip-merged heatmap maximum, which moves by no more than
+    the maps do) within P18_SCORE_REL of the plain route's largest, the
+    median joint within P18_MEDIAN_PX crop px (random weights leave flat
+    maps whose argmax the two bf16 roundings move for some joints, as in
+    phase 11a), and the det_* AP within 0.02. The protocol's rate: the
+    whole call's img/s, the batch loop's steady img/s (batches 2..n) and
+    the host tail after the last batch (fetches, OKS-NMS, OKS-AP)."""
+    import math
+
+    from tpupose_torch.engine.det_eval import DetectionCropDataset
+
+    root = P18_DIR / "coco"
+    write_coco_set(root, n_images=P18_IMAGES, seed=18)
+    det_file = _p18_detections(root)
+    tr = _p18_trainer("det_eval", {
+        "data.name": "coco", "data.root": str(root),
+        "eval.det_boxes": str(det_file), "eval.det_score_threshold": "0.1",
+        "eval.metrics": "['pck','oks_ap']"})
+    bs = tr.cfg.eval.batch_size
+    ds = DetectionCropDataset(
+        str(root / "val2017"),
+        str(root / "annotations" / "person_keypoints_val2017.json"),
+        str(det_file), score_threshold=0.1)
+    n_det = len(ds)
+    n_batches = math.ceil(n_det / bs)
+    warm_ids = {s["image_id"] for s in ds.samples[:bs // 4]}
+    warm_file = root / "dets_warm.json"
+    warm_file.write_text(json.dumps([d for d in json.loads(
+        det_file.read_text()) if d["image_id"] in warm_ids]))
+    wrappers = _r50_wrappers()
+    per_batch = {"stem_pool": 2, "layer1": 6, "bridge": 2, "dark_decode": 1}
+    ev = tr._get_evaluator()
+    if ev.fast_weights is None:
+        raise AssertionError("phase 18d: the R50 kernel route is off")
+    tr.evaluate_detections(str(warm_file), evaluator=ev)
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    rec, unwrap = _p18_record(ev)
+    t0 = time.perf_counter()
+    got = tr.evaluate_detections(str(det_file), evaluator=ev)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    unwrap()
+    det_s = t_end - t0
+    counts = {n: w.launches for n, w in wrappers.items()}
+    if counts != {k: c * n_batches for k, c in per_batch.items()} \
+            or len(rec["t"]) != n_batches:
+        raise AssertionError(f"phase 18d: det-eval launches {counts} over "
+                             f"{len(rec['t'])} steps, expected {per_batch} "
+                             f"x {n_batches}")
+    rate = {"call_img_per_s": n_det / det_s,
+            "steady_img_per_s": (n_det - bs) / (rec["t"][-1] - rec["t"][0]),
+            "first_step_s": rec["t"][0] - t0,
+            "tail_s": t_end - rec["t"][-1]}
+    ev.fast_r50 = False
+    ev.refresh(ev.model)
+    for w in wrappers.values():
+        w.launches = 0
+    rec_p, unwrap = _p18_record(ev)
+    want = tr.evaluate_detections(str(det_file), evaluator=ev)
+    torch.cuda.synchronize()
+    unwrap()
+    if wrappers["stem_pool"].launches or wrappers["layer1"].launches:
+        raise AssertionError("phase 18d: the plain route launched K1/K2")
+    kc, ks, sc = (torch.cat(x) for x in zip(*rec["out"]))
+    pc, ps, _ = (torch.cat(x) for x in zip(*rec_p["out"]))
+    crop_px = (kc - pc).norm(dim=-1) * (W / sc[:, :1])
+    joints = {"score_max_rel": float((ks - ps).abs().max()
+                                     / ps.abs().max()),
+              "median_crop_px": float(crop_px.median()),
+              "mean_crop_px": float(crop_px.mean()),
+              "share_within_1_crop_px": float((crop_px <= 1.0).float()
+                                              .mean())}
+    deltas = {k: abs(got[k] - want[k]) for k in ("det_mAP", "det_mAP50",
+                                                 "det_AR")}
+    log(f"phase 18d det-eval (R50 256x192, flip + DARK, {n_det} detections "
+        f"over {P18_IMAGES} images, B={bs}) on {card}: launches "
+        f"{counts} ({n_batches} batches); kernel vs plain (autocast) route "
+        f"per joint {json.dumps(joints)}; kernel route "
+        f"{json.dumps({k: round(v, 6) for k, v in got.items()})}; plain "
+        f"route {json.dumps({k: round(v, 6) for k, v in want.items()})}; "
+        f"|kernel - plain| {json.dumps(deltas)}; after a one-batch warm-up "
+        f"{json.dumps(rate)} (PIL or native crops, OKS-NMS, OKS-AP in the "
+        f"call)")
+    bad = [k for k, v in got.items() if not np.isfinite(v)]
+    if bad or max(deltas.values()) > 0.02 \
+            or joints["score_max_rel"] > P18_SCORE_REL \
+            or joints["median_crop_px"] > P18_MEDIAN_PX:
+        raise AssertionError(f"phase 18d: the kernel route is off the plain "
+                             f"route's: {joints}, {deltas}, non-finite {bad}")
+    ev.fast_r50 = True
+    out = tr.evaluate()
+    if not all(k in out and np.isfinite(out[k])
+               for k in ("pck", "mAP", "det_mAP", "det_AR")):
+        raise AssertionError(f"phase 18d: evaluate() {out}")
+    log(f"phase 18d evaluate() with det_boxes "
+        f"{json.dumps({k: round(v, 6) for k, v in out.items()})}")
+    for n, c in counts.items():
+        results[n]["launches_det_eval"] = c
+    del tr, ev
+    torch.cuda.empty_cache()
+    return {"detections": n_det, "batches": n_batches, "launches": counts,
+            "kernel": got, "plain": want, "joints": joints, **rate}
+
+
+def phase18_main(out_path: Path) -> int:
+    """Phase 18 on its own (a child process main() starts, as phase
+    17's): the training leftovers (18a distillation, 18b gradient
+    accumulation and the seven optax rules, 18c SWA) and detection-box
+    evaluation (18d); its rows of the kernels JSON go to `out_path`."""
+    from tpupose_torch.ops import _build
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout
+    card = smi.strip().splitlines()[0]
+    log(f"phase 18 card: {card}")
+    t_phase = time.perf_counter()
+    _build.build_all()
+    results = {k: {} for k in ("stem_pool", "layer1", "bridge",
+                               "dark_decode", "affine_warp")}
+    shutil.rmtree(P18_DIR, ignore_errors=True)
+    P18_DIR.mkdir(parents=True)
+    try:
+        readings = {"distill": p18_distill(results, card)}
+        readings["accumulate"], ckpt = p18_accumulate(results, card)
+        readings["swa"] = p18_swa(results, ckpt, card)
+        readings["det_eval"] = p18_det_eval(results, card)
+    finally:
+        shutil.rmtree(P18_DIR, ignore_errors=True)
+    readings["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"phase 18 seconds: {readings['phase_seconds']:.1f}")
+    results["affine_warp"]["phase18"] = readings
+    out_path.write_text(json.dumps(results))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3763,6 +4286,16 @@ def main() -> int:
         results[kernel].update(fam[kernel])
     phase17.unlink()
 
+    # -- phase 18: the training leftovers (distillation, gradient
+    # accumulation and the seven optax rules, SWA) and detection-box
+    # evaluation (K1-K4), in a child process, as phases 11-17 -------------
+    phase18 = ROOT / "build" / "chip_smoke_phase18.json"
+    subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                    "--phase18", str(phase18)], check=True, timeout=400)
+    for kernel, row in json.loads(phase18.read_text()).items():
+        results[kernel].update(row)
+    phase18.unlink()
+
     # -- phase 9: device times, measured last so that no profiler session
     # precedes the timing of any other phase -----------------------------------
     k8_row = results["flash_attention"]
@@ -3882,11 +4415,12 @@ if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--phase12":
         sys.exit(hrnet_main(Path(sys.argv[2])))
     if len(sys.argv) == 3 and sys.argv[1] in ("--phase15", "--phase16",
-                                              "--phase17"):
+                                              "--phase17", "--phase18"):
         if not torch.cuda.is_available():
             print("chip_smoke: CUDA is not available", file=sys.stderr)
             sys.exit(2)
         sys.exit({"--phase15": video_main, "--phase16": dino_train_main,
-                  "--phase17": families_main}[sys.argv[1]](
+                  "--phase17": families_main,
+                  "--phase18": phase18_main}[sys.argv[1]](
                       Path(sys.argv[2])))
     sys.exit(main())

@@ -1149,3 +1149,148 @@ def test_decode_ae_on_the_card_equals_the_cpu(gpu):
         torch.testing.assert_close(got["person_scores"].cpu(),
                                    want["person_scores"], rtol=1e-6,
                                    atol=0)
+
+
+# -- training leftovers and detection-box evaluation ---------------------------
+
+def _r18_state(gpu, accum=1, name="adam", seed=3):
+    from tpupose_torch.configs.default import OptimizerConfig
+    from tpupose_torch.engine.optimizers import make_optimizer
+    from tpupose_torch.engine.train_state import TrainState
+    from tpupose_torch.models.simple_baseline import SimpleBaseline
+
+    model = SimpleBaseline("resnet18", 4, (32, 32, 32), dtype=torch.bfloat16,
+                           device=gpu, param_dtype=torch.float32,
+                           generator=torch.Generator().manual_seed(seed))
+    opt = make_optimizer(OptimizerConfig(name=name, lr=1e-3),
+                         model.named_parameters(), grad_clip_norm=10.0,
+                         grad_accum_steps=accum)
+    return TrainState(model, opt)
+
+
+def _r18_batch(gpu, seed=4, n=8):
+    g = torch.Generator().manual_seed(seed)
+    return {"images": torch.randint(0, 256, (n, 64, 64, 3), generator=g,
+                                    dtype=torch.uint8).to(gpu),
+            "joints": (torch.rand((n, 4, 2), generator=g) * 16).to(gpu),
+            "visibility": torch.ones((n, 4), device=gpu)}
+
+
+def test_distilled_step_launches_the_warp_once(gpu):
+    """Two distilled heatmap steps (R18 student, a frozen R18 teacher of
+    other weights, bf16 autocast over float32 masters, device affine and
+    jitter): exactly one K7 launch a step, finite task and distillation
+    losses, the teacher unchanged."""
+    from tpupose_torch.engine.train_state import make_heatmap_train_step
+    from tpupose_torch.losses.heatmap import joints_mse_loss
+    from tpupose_torch.ops.cuda_warp import affine_warp
+
+    state = _r18_state(gpu)
+    teacher = _r18_state(gpu, seed=5).model.eval().requires_grad_(False)
+    before = {k: v.clone() for k, v in teacher.state_dict().items()}
+    step = make_heatmap_train_step(
+        joints_mse_loss, color_jitter_strength=0.2, heatmap_size=(16, 16),
+        affine_rotation=30.0, affine_scale=0.25, teacher=teacher,
+        distill_weight=0.5)
+    batch = _r18_batch(gpu)
+    for _ in range(2):
+        n0 = affine_warp.launches
+        met = step(state, batch)
+        torch.cuda.synchronize()
+        assert affine_warp.launches - n0 == 1
+        assert {"task_loss", "kd_loss"} <= set(met)
+        assert all(torch.isfinite(v).all() for v in met.values())
+    for k, v in teacher.state_dict().items():
+        assert torch.equal(v, before[k]), k
+
+
+def test_accumulation_mini_steps_leave_the_parameters_bit_unchanged(gpu):
+    """grad_accum_steps = 3, lamb, 6 device-affine steps: every parameter
+    bit-unchanged after mini-steps 1, 2, 4, 5 and changed after 3 and 6;
+    one K7 launch a step; the update count 2."""
+    from tpupose_torch.engine.train_state import make_heatmap_train_step
+    from tpupose_torch.losses.heatmap import joints_mse_loss
+    from tpupose_torch.ops.cuda_warp import affine_warp
+
+    state = _r18_state(gpu, accum=3, name="lamb")
+    step = make_heatmap_train_step(joints_mse_loss, heatmap_size=(16, 16),
+                                   affine_rotation=30.0, affine_scale=0.25)
+    batch = _r18_batch(gpu)
+    for t in range(6):
+        before = [p.detach().clone() for p in state.model.parameters()]
+        n0 = affine_warp.launches
+        met = step(state, batch)
+        torch.cuda.synchronize()
+        assert affine_warp.launches - n0 == 1
+        assert torch.isfinite(met["loss"]) and torch.isfinite(met["grad_norm"])
+        same = [torch.equal(a, p.detach())
+                for a, p in zip(before, state.model.parameters())]
+        if (t + 1) % 3:
+            assert all(same), t
+        else:
+            assert not any(same), t
+    assert state.optimizer.count == 2 and state.step == 6
+
+
+def _write_det_set(root, n_images=3, seed=0):
+    """A small COCO-format set (480x640 JPEGs, 1-2 persons, 17
+    keypoints) and a detection JSON: each GT box jittered plus one false
+    positive an image. Returns the detection file."""
+    import json
+
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    (root / "val2017").mkdir(parents=True)
+    (root / "annotations").mkdir()
+    images, anns, dets = [], [], []
+    for i in range(n_images):
+        name = f"{i:012d}.jpg"
+        Image.fromarray(rng.randint(0, 256, (480, 640, 3), dtype=np.uint8)) \
+            .save(root / "val2017" / name)
+        images.append({"id": i, "file_name": name, "width": 640,
+                       "height": 480})
+        for _ in range(1 + i % 2):
+            x, y, w, h = (float(rng.uniform(0, 400)), float(rng.uniform(0, 200)),
+                          150.0, 250.0)
+            kp = np.stack([rng.uniform(x, x + w, 17), rng.uniform(y, y + h, 17),
+                           np.full(17, 2.0)], 1)
+            anns.append({"id": len(anns), "image_id": i, "category_id": 1,
+                         "bbox": [x, y, w, h], "keypoints": kp.ravel().tolist(),
+                         "num_keypoints": 17, "area": w * h, "iscrowd": 0})
+            dets.append({"image_id": i, "category_id": 1, "score": 0.9,
+                         "bbox": [x + 5, y - 5, w * 1.05, h * 0.95]})
+        dets.append({"image_id": i, "category_id": 1, "score": 0.3,
+                     "bbox": [500.0, 300.0, 100.0, 150.0]})
+    (root / "annotations" / "person_keypoints_val2017.json").write_text(
+        json.dumps({"images": images, "annotations": anns}))
+    (root / "dets.json").write_text(json.dumps(dets))
+    return str(root / "dets.json")
+
+
+def test_det_eval_batch_launches_exactly(card, tmp_path):
+    """evaluate_detections of the R50 at 256x192 with flip and DARK on
+    the kernel route: per batch exactly 2 K1, 6 K2, 2 K3 and 1 K4
+    launches; the AP suite finite."""
+    from tpupose_torch.engine.det_eval import (DetectionCropDataset,
+                                               evaluate_detections)
+    from tpupose_torch.engine.evaluator import TopDownEvaluator
+    from tpupose_torch.ops.cuda_bridge import bridge
+    from tpupose_torch.ops.cuda_decode import dark_decode
+    from tpupose_torch.ops.cuda_layer1 import layer1
+    from tpupose_torch.ops.cuda_stem import stem_pool
+
+    det_file = _write_det_set(tmp_path)
+    ds = DetectionCropDataset(str(tmp_path / "val2017"), str(
+        tmp_path / "annotations" / "person_keypoints_val2017.json"),
+        det_file)
+    ev = TopDownEvaluator(card, (64, 48), flip_test=True, device="cuda")
+    assert ev.fast_weights is not None
+    wrappers = (stem_pool, layer1, bridge, dark_decode)
+    for w in wrappers:
+        w.launches = 0
+    out = evaluate_detections(ev, ds, batch_size=4, num_workers=0)
+    n = -(-len(ds) // 4)
+    assert [w.launches for w in wrappers] == [2 * n, 6 * n, 2 * n, n]
+    assert {"mAP", "mAP50", "AR"} <= set(out)
+    assert all(np.isfinite(v) for v in out.values())

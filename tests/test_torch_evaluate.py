@@ -425,17 +425,19 @@ def test_run_metrics_in_the_epoch_loop(tmp_path):
 @pytest.mark.parametrize("key,value,item", [
     ("eval.det_boxes", "dets.json", "item 11")])
 def test_unported_eval_options_raise(tmp_path, key, value, item):
-    """eval.int8 and eval.int8_engine are ported (held against JAX in
-    tests/test_torch_int8_eval.py); detection-box evaluation raises."""
+    """Every evaluation option is ported now: eval.int8 / int8_engine
+    (held against JAX in tests/test_torch_int8_eval.py) and, since Queue
+    A `item`, detection-box evaluation (tests/test_torch_det_eval.py).
+    Neither Trainer() nor evaluate() raises for it; on a dataset that is
+    not COCO-format evaluate() skips the protocol with a warning, as
+    JAX's does, and reports no det_* metric."""
     from tpupose_torch.engine.trainer import Trainer
 
-    with pytest.raises(ValueError, match=item):
-        Trainer(_tiny_cfg("tpupose_torch", tmp_path, **{
-            key: value, "eval.run_metrics": True}), device="cpu")
-    tr = Trainer(_tiny_cfg("tpupose_torch", tmp_path, **{key: value}),
-                 device="cpu")
-    with pytest.raises(ValueError, match=item):
-        tr.evaluate()
+    tr = Trainer(_tiny_cfg("tpupose_torch", tmp_path, **{
+        key: value, "eval.run_metrics": True}), device="cpu")
+    out = tr.evaluate()
+    assert "pck" in out and not any(k.startswith("det_") for k in out)
+    assert tr.evaluate_detections(value) == {}
 
 
 def test_evaluate_refolds_the_r50_route_after_training(tmp_path):

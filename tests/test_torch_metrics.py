@@ -272,12 +272,105 @@ def _oksap_random(M, _):
     return out
 
 
+def _pdj(M, _):
+    """Seeded batches with the torso joints (5, 12) sometimes invisible,
+    and an explicit normalizer."""
+    rng = np.random.RandomState(10)
+    m = M.PDJ(alpha=0.2)
+    for _ in range(3):
+        pred, gt, vis = _random_pose(rng)
+        vis[1, 5] = 0
+        m.update(pred, gt, vis)
+    pred, gt, vis = _random_pose(rng)
+    m.update(pred, gt, vis, normalizer=rng.uniform(20, 80, len(gt)))
+    other = M.PDJ(alpha=0.3, torso_indices=(6, 11))
+    other.update(*_random_pose(rng))
+    return {**m.compute(), **{"other_" + k: v
+                              for k, v in other.compute().items()},
+            "torso": np.asarray(m.torso_size(gt, vis))}
+
+
+def _pcp(M, _):
+    """PCP over seeded batches (a zero-length limb, an invisible
+    endpoint), PCPm over the same, custom limbs and alpha, and the empty
+    PCPm."""
+    rng = np.random.RandomState(11)
+    a, b = M.PCP(), M.PCPm()
+    c = M.PCP(alpha=0.3, limbs=((0, 1), (2, 3)))
+    for _ in range(3):
+        pred, gt, vis = _random_pose(rng, noise=12.0)
+        gt[2, 7] = gt[2, 5]                    # a zero-length limb
+        vis[3, 9] = 0
+        a.update(pred, gt, vis)
+        b.update(pred, gt, vis)
+        c.update(pred, gt, vis)
+    return {**a.compute(), **{"m_" + k: v for k, v in b.compute().items()},
+            **{"c_" + k: v for k, v in c.compute().items()},
+            **{"empty_" + k: v for k, v in M.PCPm().compute().items()}}
+
+
+def _boxes(rng, n, lo=0.0, hi=200.0):
+    xy = rng.uniform(lo, hi, (n, 2))
+    wh = rng.uniform(5, 80, (n, 2))
+    return np.concatenate([xy, xy + wh], 1).astype(np.float32)
+
+
+def _det_map(M, _):
+    """Five images, two classes, predictions near the GT boxes, false
+    positives, padding masks, an image without GT, the IoU matrix (with
+    an empty side), a class without any GT, custom thresholds."""
+    rng = np.random.RandomState(12)
+    out = {}
+    for tag, kw in (("default", {}),
+                    ("thr", dict(thresholds=np.arange(0.3, 0.9, 0.1)))):
+        m = M.DetectionMAP(num_classes=3, **kw)
+        for img in range(5):
+            ng = 0 if img == 4 else rng.randint(1, 4)
+            gb = _boxes(rng, ng)
+            gc = rng.randint(0, 2, ng)
+            src = rng.randint(0, max(ng, 1), 5)
+            pb = (gb[src] if ng else _boxes(rng, 5)) + rng.normal(
+                0, 4, (5, 4)).astype(np.float32)
+            pb = np.concatenate([pb, _boxes(rng, 2)])
+            pc = np.concatenate([gc[src] if ng else rng.randint(0, 2, 5),
+                                 rng.randint(0, 2, 2)])
+            ps = np.round(rng.uniform(0, 1, 7), 2).astype(np.float32)
+            m.update(pb, ps, pc, gb, gc,
+                     pred_valid=rng.uniform(size=7) > 0.15,
+                     gt_valid=np.ones(ng, bool) if img % 2 else None)
+        out.update({f"{tag}_{k}": v for k, v in m.compute().items()})
+    out["iou"] = M.box_iou_np(_boxes(rng, 4), _boxes(rng, 3))
+    out["iou_empty"] = M.box_iou_np(_boxes(rng, 0), _boxes(rng, 3))
+    out["empty"] = M.DetectionMAP().compute()["mAP"]
+    return out
+
+
+def _classify(M, _):
+    rng = np.random.RandomState(13)
+    m = M.ClassifyMet(num_classes=6, topk=3)
+    for _ in range(3):
+        m.update(rng.normal(0, 1, (8, 6)), rng.randint(0, 6, 8))
+    small = M.ClassifyMet(num_classes=2)          # topk above the classes
+    small.update(np.array([[0.1, 0.9], [0.8, 0.2]]), np.array([1, 1]))
+    return {**m.compute(), **{"small_" + k: v
+                              for k, v in small.compute().items()}}
+
+
+def _mask_iou(M, _):
+    rng = np.random.RandomState(14)
+    a = rng.uniform(size=(3, 9, 7)) > 0.5
+    b = rng.uniform(size=(4, 9, 7)) > 0.6
+    b[0] = False
+    return {"iou": M.mask_iou(a, b), "empty": M.mask_iou(b[:1], b[:1])}
+
+
 CASES = {f.__name__[1:]: f for f in (
     _hand_pck, _random_pck, _pck_normalizer, _pck_batch, _hand_pckh,
     _random_pckh, _mpjpe_mask, _random_mpjpe, _auc, _random_auc_epe,
     _oks_matrix, _oksap_perfect, _oksap_wrong, _oksap_area_ranges,
     _oksap_empty_range, _oksap_ignore_region, _oksap_max_dets,
-    _oksap_ignored_matched_once, _oksap_empty_schema, _oksap_random)}
+    _oksap_ignored_matched_once, _oksap_empty_schema, _oksap_random,
+    _pdj, _pcp, _det_map, _classify, _mask_iou)}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -309,6 +402,28 @@ def test_port_metrics_compute_in_float32():
 
 
 def test_registry_names_what_the_trainer_builds():
-    assert set(P.METRICS) == {"oks_ap", "pck", "pckh", "mpjpe", "auc",
-                              "epe"}
+    """The registry is JAX's (names, classes' names, the aliases); the
+    trainer builds exactly JAX's six eval.metrics names from it and
+    refuses the others (pdj, pcp, ... reach evaluation as objects passed
+    to TopDownEvaluator.run)."""
+    from tpupose_torch.engine.trainer import Trainer
+
+    assert {k: v.__name__ for k, v in P.METRICS.items()} == \
+        {k: v.__name__ for k, v in J.METRICS.items()}
+    assert (P.PMet, P.DMet, P.CMet) == (P.OKSAP, P.DetectionMAP,
+                                        P.ClassifyMet)
+    assert sorted(P.__all__) == sorted(J.__all__ + ["default_sigmas"])
     np.testing.assert_array_equal(P.OKS_SIGMAS, J.OKS_SIGMAS)
+
+    class Cfg:
+        class eval:
+            metrics = ("pck", "pckh", "mpjpe", "oks_ap", "auc", "epe")
+
+    tr = Trainer.__new__(Trainer)
+    tr.cfg = Cfg
+    built = tr._build_eval_metrics()
+    assert [type(m).__name__ for m in built] == [
+        "PCK", "PCKh", "MPJPE", "OKSAP", "AUC", "EPE"]
+    for name in set(P.METRICS) - set(Cfg.eval.metrics):
+        with pytest.raises(ValueError, match="unknown eval metric"):
+            tr._build_eval_metrics([name])

@@ -62,7 +62,8 @@ def pil_affine_crop(img: np.ndarray, m: np.ndarray, out_hw) -> np.ndarray:
 
 
 class CocoTopDownDataset:
-    def __init__(self, image_dir: str, ann_file: str, image_size=(256, 192),
+    def __init__(self, image_dir: str, ann_file: str | None,
+                 image_size=(256, 192),
                  heatmap_size=(64, 48), is_train: bool = True,
                  scale_factor: float = 0.25, rotation_factor: float = 30.0,
                  flip_prob: float = 0.5, min_keypoints: int = 1,
@@ -123,10 +124,12 @@ class CocoTopDownDataset:
         self._rng_lock = threading.Lock()  # guards the visit counter
         self._cache_lock = threading.Lock()  # guards the decode cache
 
+        self.samples = []
+        if ann_file is None:     # a subclass builds the samples itself
+            return
         with open(ann_file) as f:
             coco = json.load(f)
         images = {im["id"]: im for im in coco["images"]}
-        self.samples = []
         for ann in coco.get("annotations", []):
             if ann.get("num_keypoints", 0) < min_keypoints or ann.get("iscrowd", 0):
                 continue
@@ -288,6 +291,8 @@ class CocoTopDownDataset:
             "area": np.float32(s["area"]),
             "flipped": flipped,
         }
+        if "det_score" in s:   # detection-driven eval (engine/det_eval.py)
+            out["det_score"] = np.float32(s["det_score"])
         return out
 
     def _flip_folded_matrix(self, s, center, scale, rot, flipped):

@@ -201,9 +201,10 @@ class Builder:
 
     # -- optimizer + schedule --------------------------------------------------
     def lr_scheduler(self, steps_per_epoch: int):
-        """(base, head) lr(t) functions; warmup and decay in update units."""
+        """(base, head) lr(t) functions; warmup and decay in update units:
+        with grad_accum_steps k an update is k train steps."""
         t = self.cfg.train
-        upd_per_epoch = max(1, steps_per_epoch)
+        upd_per_epoch = max(1, steps_per_epoch // max(1, t.grad_accum_steps))
         total = t.epochs * upd_per_epoch
         warmup = t.warmup_epochs * upd_per_epoch
         base = make_schedule(self.cfg.lr_scheduler, self.cfg.optimizer.lr,

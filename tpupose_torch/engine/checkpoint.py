@@ -6,7 +6,8 @@ epoch index; gating on the step is the fallback for epoch-less callers)
 keeping the newest `max_to_keep`; a single best-by-metric slot (lower is
 better) in its own directory, which the periodic clean-up never touches,
 with its metric and step in `best_meta.json` so they survive restarts;
-`restore(best=)` and `restore_path("<dir>@best")`.
+`restore(best=)` and `restore_path("<dir>@best")`; `average_checkpoints`
+(SWA over the periodic checkpoints).
 
 Files are `torch.save` of TrainState.state_dict(): {step, model (state
 dict with the BatchNorm statistics), optimizer (update count and
@@ -108,6 +109,66 @@ class CheckpointManager:
     def latest_step(self):
         steps = _steps(self._periodic)
         return steps[-1] if steps else None
+
+
+def average_checkpoints(directory: str, state, steps=None, last: int = 0):
+    """SWA-style weight averaging (Izmailov et al., UAI 2018): `state`
+    (a TrainState) carrying the uniform average of several periodic
+    checkpoints' parameters and BatchNorm statistics (every floating
+    tensor of the model's state dict, averaged in float32 and cast back
+    to its dtype; an integer buffer such as num_batches_tracked is the
+    newest checkpoint's), and of their stored EMA where `state` tracks
+    one. The optimizer state is not averaged: the result is an
+    evaluation and serving artifact, its step the newest step used.
+
+    steps: an explicit step list; by default the `last` newest periodic
+    steps (all kept steps when last <= 0). Returns (state, used_steps).
+    """
+    d = os.path.join(os.path.abspath(directory), "periodic")
+    avail = _steps(d)
+    if not avail:
+        raise FileNotFoundError(f"no periodic checkpoints in {directory}")
+    if steps is None:
+        steps = avail[-last:] if last > 0 else avail
+    steps = [int(s) for s in steps]
+    missing = [s for s in steps if s not in avail]
+    if missing:
+        raise ValueError(f"steps {missing} not in {avail}")
+    has_ema = state.ema is not None
+    dev = next(state.model.parameters()).device
+    ref = state.model.state_dict()
+    acc_m, acc_e, newest = None, None, None
+    for s in steps:
+        sd = torch.load(os.path.join(d, f"{s}.pt"), map_location=dev,
+                        weights_only=True)
+        if has_ema and sd.get("ema") is None:
+            raise ValueError(
+                f"checkpoint step {s} has no EMA but the template state "
+                f"tracks one; restrict the steps to the EMA-era checkpoints "
+                f"or average the raw parameters with a state without EMA")
+        m = {k: v.float() for k, v in sd["model"].items()
+             if v.is_floating_point()}
+        e = [v.float() for v in sd["ema"]] if has_ema else None
+        if acc_m is None:
+            acc_m, acc_e = m, e
+        else:
+            for k, v in m.items():
+                acc_m[k] += v
+            if has_ema:
+                torch._foreach_add_(acc_e, e)
+        if s == max(steps):
+            newest = sd["model"]
+    n = float(len(steps))
+    avg = {k: (acc_m[k] / n).to(v.dtype) if k in acc_m else newest[k]
+           for k, v in ref.items()}
+    state.model.load_state_dict(avg)
+    if has_ema:
+        with torch.no_grad():
+            for dst, a in zip(state.ema, acc_e):
+                dst.copy_((a / n).to(dst.dtype))
+    state.step = max(steps)
+    printS(f"averaged {len(steps)} checkpoints {steps} from {directory}")
+    return state, steps
 
 
 def restore_path(state, path: str):

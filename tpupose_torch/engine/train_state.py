@@ -62,8 +62,11 @@ class TrainState:
 
     @torch.no_grad()
     def apply_gradients(self) -> torch.Tensor:
-        """Clip + update from the parameters' .grad, then the EMA; returns
-        the global gradient norm before clipping (device tensor)."""
+        """Clip + update from the parameters' .grad (under gradient
+        accumulation: add them to the window's mean, and update at its
+        end), then the EMA, whose step counts every call; returns the
+        global norm of these gradients, the mini-batch's own (device
+        tensor)."""
         grad_norm = self.optimizer.step()
         if self.ema is not None:
             t = float(self.step)
@@ -159,7 +162,9 @@ def _backward_update(state: TrainState, loss) -> dict:
 def make_heatmap_train_step(loss_fn, color_jitter_strength: float = 0.0,
                             jitter_seed: int = 0, heatmap_size=None,
                             sigma: float = 2.0, affine_rotation: float = 0.0,
-                            affine_scale: float = 0.0, udp: bool = False):
+                            affine_scale: float = 0.0, udp: bool = False,
+                            teacher: torch.nn.Module | None = None,
+                            distill_weight: float = 0.5):
     """The heatmap-family train step, `step(state, batch, draws=None)`.
 
     batch: {"images": uint8/float NHWC} plus EITHER {"target" (B, Hh, Wh,
@@ -170,7 +175,14 @@ def make_heatmap_train_step(loss_fn, color_jitter_strength: float = 0.0,
     jitters brightness, contrast and saturation. draws: {"affine": (mult,
     rot), "jitter": (brightness, contrast, saturation)}; by default
     `step.draws_for(state.step, B, device)`. Updates `state` in place and
-    returns {"loss", "grad_norm"} as device tensors."""
+    returns {"loss", "grad_norm"} as device tensors.
+
+    teacher: heatmap knowledge distillation (FPD, Zhang et al., CVPR
+    2019). The frozen teacher's eval-mode forward runs without a graph on
+    the same augmented, jittered and normalised pixels, and the loss is
+    (1 - w) task + w joints_mse(student, teacher, target_weight) with w =
+    distill_weight; the metrics gain "task_loss" and "kd_loss"."""
+    from tpupose_torch.losses.heatmap import joints_mse_loss
     use_affine = affine_rotation > 0 or affine_scale > 0
     if use_affine and heatmap_size is None:
         raise ValueError("device affine augmentation needs heatmap_size")
@@ -195,7 +207,17 @@ def make_heatmap_train_step(loss_fn, color_jitter_strength: float = 0.0,
             t, tw = gaussian_heatmaps(joints, vis, tuple(heatmap_size), sigma)
             target = t.permute(0, 2, 3, 1)               # NKHW -> NHWK
         model = state.model.train()
-        return _backward_update(state, loss_fn(model(imgs), target, tw))
+        pred = model(imgs)
+        task = loss_fn(pred, target, tw)
+        if teacher is None:
+            return _backward_update(state, task)
+        with torch.no_grad():
+            t_hm = teacher.eval()(imgs)
+        kd = joints_mse_loss(pred, t_hm, tw)
+        metrics = _backward_update(
+            state, (1.0 - distill_weight) * task + distill_weight * kd)
+        metrics.update(task_loss=task.detach(), kd_loss=kd.detach())
+        return metrics
 
     train_step.draws_for = draws_for
     return train_step

@@ -12,7 +12,9 @@ logged steps), loss-only `validate` (pad-mask weighting, EMA weights),
 metric `evaluate` (heatmap and SimCC families: flip test + decode +
 back-projection + the metrics of `eval.metrics` over the valid set,
 `eval.dump_results`; in the epoch loop with `eval.run_metrics`, as for
-bottom-up; int8 evaluation with `eval.int8`, the PTQ intercept, and
+bottom-up; with `eval.det_boxes` also the official COCO protocol on a
+detector's boxes, `evaluate_detections`, under det_*; int8 evaluation
+with `eval.int8`, the PTQ intercept, and
 `eval.int8_engine` (heatmap family only), cli.serve's int8 engine (the
 R50's CudaServingEngine, else Int8Engine), both calibrated on the first
 validation batch against the current eval weights at every call; yolo
@@ -20,10 +22,11 @@ family: `val_loss` and `evaluate_yolo`, YoloPosePredictor + OKS-NMS +
 OKS-AP; regression and RLE: `val_loss` and `evaluate_regression`, PCK,
 PCKh (K > 9), MPJPE, AUC, EPE in source pixels; bottom-up:
 `evaluate_bottom_up`, BottomUpPredictor's AE grouping + OKS-AP, with
-`eval.int8`), `train` with the SIGTERM/SIGINT checkpoint guard,
-`save_checkpoint` and `load_checkpoint`. Not ported yet (ROADMAP Queue
-A): distillation (item 5d), pretrained weights and the device mesh (item
-12), detection-box evaluation (`eval.det_boxes`, item 11).
+`eval.int8`), heatmap distillation from a frozen teacher
+(`train.distill_cfg`, `train.distill_ckpt`), `train` with the
+SIGTERM/SIGINT checkpoint guard, `save_checkpoint` and
+`load_checkpoint`. Not ported yet (ROADMAP Queue A): pretrained weights
+and the device mesh (item 12).
 
 Runs on `device` (default "cuda"; raises where CUDA is absent). On the
 card a ViTPose step runs the flash-attention kernels K8 (forward) and K8b
@@ -31,7 +34,8 @@ card a ViTPose step runs the flash-attention kernels K8 (forward) and K8b
 included, in the backward. A DINOv3Pose step on a ViT backbone runs K8
 in every block, and K8b too where `model.freeze_backbone` is off (a
 frozen backbone runs without a graph). A heatmap or SimCC step with
-`data.device_affine` runs the warp kernel K7 once. `evaluate` of a
+`data.device_affine` runs the warp kernel K7 once (a distilled or
+gradient-accumulating step too). `evaluate` of a
 SimpleBaseline-R50 at 256x192 runs the stem (K1), layer1 (K2) and
 block2_0 (K3) kernels on weights folded from the current (EMA where
 tracked) parameters at each call, and the DARK decode kernel (K4).
@@ -77,11 +81,6 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.builder = builder or Builder(cfg, self.device)
-        if cfg.train.distill_cfg:
-            raise ValueError("distillation (train.distill_cfg) is not ported "
-                             "to tpupose_torch yet (ROADMAP Queue A item 5)")
-        if cfg.eval.run_metrics:
-            self._check_eval_options()
         if cfg.loss.name not in _FAMILIES:
             raise ValueError(f"unknown loss {cfg.loss.name!r}")
         self.family = _FAMILIES[cfg.loss.name]
@@ -98,6 +97,7 @@ class Trainer:
         self.state = TrainState(self.model, opt,
                                 ema_decay=cfg.train.ema_decay)
         self.loss_fn = self.builder.loss()
+        self.teacher = None                 # the heatmap family's, distilling
         dev_aff = cfg.data.device_affine
         aug = dict(color_jitter_strength=cfg.data.color_jitter,
                    jitter_seed=cfg.train.seed,
@@ -120,9 +120,12 @@ class Trainer:
         elif self.family == "bottom_up":
             self.train_step = make_bottom_up_train_step(self.loss_fn)
         else:
+            if cfg.train.distill_cfg:
+                self.teacher = self._build_teacher()
             self.train_step = make_heatmap_train_step(
                 self.loss_fn, heatmap_size=tuple(cfg.model.heatmap_size),
-                sigma=cfg.data.sigma, **aug)
+                sigma=cfg.data.sigma, teacher=self.teacher,
+                distill_weight=cfg.train.distill_weight, **aug)
         self.eval_step = make_heatmap_eval_step()
         self.img_per_s = float("nan")       # the last epoch's figure
         self._evaluator = None              # built by the first evaluate()
@@ -136,6 +139,46 @@ class Trainer:
         self._exit_signal = None
         if cfg.model.checkpoint:
             self.load_checkpoint(cfg.model.checkpoint)
+
+    def _build_teacher(self) -> torch.nn.Module:
+        """The distillation teacher (train.distill_cfg / distill_ckpt):
+        its model from its own config, its weights restored (the raw
+        parameters, as JAX's teacher state tracks no EMA; a random
+        teacher with a warning without distill_ckpt), frozen in eval
+        mode on the trainer's device. It must be a heatmap-family model
+        on the student's heatmap grid, keypoints and input size."""
+        from tpupose_torch.cli.serve import HEATMAP_FAMILIES
+        from tpupose_torch.configs import load_config
+
+        cfg = self.cfg
+        tcfg = load_config(cfg.train.distill_cfg)
+        if tcfg.model.name not in HEATMAP_FAMILIES:
+            raise ValueError(
+                "distill teacher must be a heatmap-family model "
+                f"{HEATMAP_FAMILIES}; got model.name={tcfg.model.name!r} "
+                f"from {cfg.train.distill_cfg}")
+        if (tuple(tcfg.model.heatmap_size) != tuple(cfg.model.heatmap_size)
+                or tcfg.model.num_keypoints != cfg.model.num_keypoints):
+            raise ValueError(
+                "distill teacher must emit the student's heatmap grid: "
+                f"teacher {tcfg.model.heatmap_size}/"
+                f"{tcfg.model.num_keypoints}kp vs student "
+                f"{cfg.model.heatmap_size}/{cfg.model.num_keypoints}kp")
+        if tuple(tcfg.data.image_size) != tuple(cfg.data.image_size):
+            raise ValueError(
+                "distill teacher must consume the student's input size "
+                f"(teacher {tcfg.data.image_size} vs student "
+                f"{cfg.data.image_size}): both run on the same batch")
+        tbuilder = Builder(tcfg, self.device)
+        teacher = tbuilder.model()
+        if cfg.train.distill_ckpt:
+            restore_path(TrainState(teacher, tbuilder.optimizer(teacher, 1)),
+                         cfg.train.distill_ckpt)
+        else:
+            printW("distill: no distill_ckpt given, random teacher")
+        printT(f"distill: teacher {tcfg.model.name}/{tcfg.model.backbone} "
+               f"(w={cfg.train.distill_weight})")
+        return teacher.eval().requires_grad_(False)
 
     # ------------------------------------------------------------------
     @property
@@ -293,13 +336,10 @@ class Trainer:
             return float("nan")
         return total / n
 
-    def _check_eval_options(self):
-        """The evaluation options that are not ported yet raise."""
-        e = self.cfg.eval
-        if e.det_boxes:
-            raise ValueError("detection-box evaluation (eval.det_boxes) is "
-                             "not ported to tpupose_torch yet (ROADMAP "
-                             "Queue A item 11)")
+    # the names eval.metrics may hold, as in JAX's Trainer; the rest of the
+    # metric library reaches evaluation as objects handed to
+    # TopDownEvaluator.run
+    EVAL_METRICS = ("pck", "pckh", "mpjpe", "oks_ap", "auc", "epe")
 
     def _build_eval_metrics(self, names=None):
         """Metric objects from `names` (default cfg.eval.metrics)."""
@@ -307,7 +347,7 @@ class Trainer:
 
         out = []
         for name in (self.cfg.eval.metrics if names is None else names):
-            if name not in METRICS:
+            if name not in self.EVAL_METRICS:
                 raise ValueError(f"unknown eval metric {name!r}")
             if name == "pck":
                 out.append(METRICS[name](alpha=0.2))
@@ -401,8 +441,9 @@ class Trainer:
         with eval.dump_results also the COCO keypoint-results JSON. Yolo
         family: `val_loss` and `evaluate_yolo`'s metrics; regression and
         RLE: `val_loss` and `evaluate_regression`'s; bottom-up:
-        `evaluate_bottom_up`'s."""
-        self._check_eval_options()
+        `evaluate_bottom_up`'s. With eval.det_boxes the heatmap and SimCC
+        families add `evaluate_detections`' det_* metrics, on the same
+        evaluator (int8 is not calibrated twice)."""
         if self.family == "bottom_up":
             out = self.evaluate_bottom_up()
         elif self.family in ("yolo", "regression", "rle"):
@@ -413,8 +454,40 @@ class Trainer:
             ev = self._get_evaluator()
             out = ev.run(self._eval_batches(), self._build_eval_metrics(),
                          results_path=self.cfg.eval.dump_results or None)
+            if self.cfg.eval.det_boxes:
+                out.update(self.evaluate_detections(self.cfg.eval.det_boxes,
+                                                    evaluator=ev))
         printM("eval: " + " ".join(f"{k}={v:.4f}" for k, v in out.items()))
         return out
+
+    def evaluate_detections(self, det_file: str, evaluator=None) -> dict:
+        """The official COCO top-down protocol: crops from a detector's
+        boxes (a COCO detection-results JSON) instead of the GT boxes,
+        scored by OKS-AP against the val annotations (engine/det_eval.py).
+        Results carry a det_ prefix, so both protocols report side by
+        side. COCO data only (else a warning and no metrics)."""
+        from tpupose_torch.engine.det_eval import (DetectionCropDataset,
+                                                   evaluate_detections)
+
+        d, e = self.cfg.data, self.cfg.eval
+        if d.name != "coco":
+            printW("eval.det_boxes requires data.name=coco; skipping")
+            return {}
+        ds = DetectionCropDataset(
+            image_dir=os.path.join(d.root, "val2017"),
+            ann_file=os.path.join(d.root, "annotations",
+                                  "person_keypoints_val2017.json"),
+            det_file=det_file, image_size=tuple(d.image_size),
+            heatmap_size=tuple(self.cfg.model.heatmap_size),
+            num_keypoints=self.cfg.model.num_keypoints,
+            score_threshold=e.det_score_threshold,
+            max_per_image=e.det_max_per_image, udp=d.udp)
+        out = evaluate_detections(
+            evaluator if evaluator is not None else self._get_evaluator(),
+            ds, batch_size=e.batch_size, num_workers=d.num_workers,
+            nms=e.det_nms, nms_threshold=e.det_nms_threshold,
+            vis_threshold=e.det_vis_threshold)
+        return {f"det_{k}": v for k, v in out.items()}
 
     def evaluate_yolo(self) -> dict:
         """COCO keypoint mAP for the single-stage family: YoloPosePredictor
