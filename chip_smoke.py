@@ -244,6 +244,35 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
      crop px, the det_* AP within 0.02; the call's img/s, the batch
      loop's steady img/s and the host tail; then evaluate() with
      eval.det_boxes; the phase's seconds;
+  19. (in the phase-18 child process, after 18) few-shot and
+     pretraining, at the yamls' widths: 19a 8 episodes of FSKD ViT-S/16
+     224x224 bf16 (fskd_small.yaml: 5-way 1-shot 4-query, 5 support and
+     20 query images) through EpisodicTrainer on _synthetic_class_dataset,
+     exactly 24 K8 and 24 K8b launches an episode and no other kernel,
+     the losses finite, episodes/s, one FSKD forward on the kernel route
+     against plain attention with the layer scales drawn U(0.2, 0.6)
+     (each output and the query encode's patch map within 5e-2, and on
+     average 5e-3, of the plain one's largest magnitude; a zero
+     attention must fail that gate), and K8/K8b through fused_attention's autograd at FSKD's
+     (5, 201, 6, 64) and (20, 201, 6, 64) against float32 plain (o, dq,
+     dk, dv within 2e-2 and 2x SDPA's error; the wrong attention must
+     fail); 19b maml_adapt with 3 inner steps on one
+     episode's support set, exactly 24 K8 and 24 K8b launches an inner
+     step, the support loss falls (19a and 19b also time a step and a
+     call under torch.profiler: device busy ms and idle share), and a
+     backward of the query loss
+     through the adapted parameters raises RuntimeError (K8b is
+     once_differentiable); 19c 4 MAETrainer steps of FCMAE
+     ConvNeXtV2-atto 224x224 (fcmae.yaml: B=64, patch 32, 29 of 49 cells
+     masked, decoder 512) on 256 synthetic crops, no kernel launched, the
+     losses finite, img/s and peak memory; 19d a seeded torchvision-style
+     R50 checkpoint loaded by Trainer (simple_baseline.yaml,
+     model.pretrained, device affine): the backbone's tensors and
+     BatchNorm statistics equal the file's and the EMA the parameters
+     before the first step, 2 steps with exactly one K7 launch each and
+     no other kernel; one DetectHead decode (80 classes, reg_max 16, the
+     three levels of 640x640) on the card against the CPU in float32
+     (within 1e-3); the phase's seconds;
   9. device times under torch.profiler, last: K8, its plain version and
      SDPA at both shapes (their `ms`, `plain_ms`, `library_ms`: a K8
      launch is shorter than its wrapper's Python, so CUDA events around
@@ -259,11 +288,12 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
      {"ok": true, "device": {...}}.
 
 Phases run in the order 1-5, 7, 3d, 3e, 4c, 8, 10, 11, 12-14, 15, 16, 17,
-18, 9, 6. Exits
+18, 19, 9, 6. Exits
 non-zero without printing a result where CUDA is unavailable. Needs one
 card; imports nothing of JAX. Writes only under build/ of the checkout
 (the kernels, the native host-IO library, the phase-7, phase-10,
-phase-12, phase-16, phase-17 and phase-18 checkpoints and the phase-11,
+phase-12, phase-16, phase-17, phase-18 and phase-19 checkpoints and the
+phase-11,
 phase-12, phase-15, phase-17 and phase-18 data, removed at the end). Each phase from 12 on prints its
 seconds.
 """
@@ -3481,11 +3511,494 @@ def p18_det_eval(results, card: str):
             "kernel": got, "plain": want, "joints": joints, **rate}
 
 
+# tpupose/configs/method/fskd_small.yaml and fcmae.yaml (phase 19), written
+# out so that the script reads no file of the JAX package
+FSKD_SMALL = {
+    "model": {"name": "fskd", "backbone": "vit_small", "num_keypoints": 17},
+    "data": {"name": "fewshot", "image_size": [224, 224], "n_way": 5,
+             "k_shot": 1, "n_query": 4, "episodes_per_epoch": 100},
+    "train": {"batch_size": 1, "epochs": 50, "warmup_epochs": 1},
+    "optimizer": {"name": "adamw", "lr": 1.0e-4},
+    "lr_scheduler": {"name": "cosine"},
+}
+FCMAE_CFG = {
+    "model": {"name": "fcmae", "backbone": "convnext_atto"},
+    "data": {"name": "synthetic", "image_size": [224, 224]},
+    "train": {"batch_size": 64, "epochs": 100, "warmup_epochs": 5},
+    "optimizer": {"name": "adamw", "lr": 1.5e-4, "weight_decay": 0.05},
+    "lr_scheduler": {"name": "cosine"},
+}
+P19_EPISODES = 8
+P19_INNER_STEPS = 3
+# an FSKD forward on the kernel route against the plain route, with the
+# layer scales drawn U(0.2, 0.6): every output's max and mean |diff|
+# within these shares of the plain output's largest magnitude (bf16
+# through 12 blocks; K8 and the plain version differ by float32 summation
+# order and K8's bf16 P). Measured on an H100: at most 0.0223 and 0.0032;
+# a zero attention 0.25-1.2 and 0.067-0.30.
+P19_FSKD_TOL = 5e-2
+P19_FSKD_MEAN_TOL = 5e-3
+
+
+def _p19_reset():
+    """Every kernel's launch count to 0."""
+    for w in _video_counts().values():
+        w.launches = 0
+
+
+def _p19_counts() -> dict:
+    return {k: w.launches for k, w in _video_counts().items()}
+
+
+def _p19_check(label: str, got: dict, want: dict):
+    """`want` {row: launches}; every other kernel must be at 0."""
+    full = {k: want.get(k, 0) for k in got}
+    if got != full:
+        raise AssertionError(f"phase {label}: launches {got}, want {full}")
+
+
+def _timed_steps(obj, name: str, times: list):
+    """Wrap obj.<name> so that each call's wall time (host clock, after a
+    synchronize) is appended to `times`."""
+    fn = getattr(obj, name)
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    setattr(obj, name, timed)
+
+
+def _rolled_attention(q, k, v, scale=None, impl="kernel"):
+    """A deliberately wrong attention for the gates' own check: the plain
+    version with each value row one token off its key."""
+    from tpupose_torch.ops.attention import attention_reference
+
+    return attention_reference(q, k, v.roll(1, 1), scale or 0.125)
+
+
+def _zero_attention(q, k, v, scale=None, impl="kernel"):
+    """A deliberately wrong attention that returns zeros."""
+    return torch.zeros_like(q)
+
+
+def p19_attention(Bq: int, seed: int) -> dict:
+    """K8 and K8b through fused_attention's autograd at one of FSKD's
+    shapes, (Bq, 201, 6, 64) bf16 (196 patches, CLS and 4 storage
+    tokens), q and k contiguous and v a strided view of the qkv
+    projection, as RopeAttention hands them: o, dq, dk, dv each within
+    2e-2 of max |float32 plain| and 2x SDPA's error on the same inputs
+    (checked by the caller), where a deliberately wrong attention (values
+    one token off) must read above 2e-2. Returns {"kernel", "sdpa",
+    "wrong"}: each {o, dq, dk, dv} max |diff| / max |float32 plain|."""
+    from tpupose_torch.ops.attention import (attention_reference,
+                                             fused_attention)
+
+    L, H = 201, 6
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((Bq, L, 3 * H * 64), generator=g, device="cuda") \
+        .to(torch.bfloat16).requires_grad_()
+    do = torch.randn((Bq, L, H, 64), generator=g, device="cuda") \
+        .to(torch.bfloat16)
+    f32 = qkv.detach().float().requires_grad_()
+
+    def run(fn, src):
+        q, k, v = src.view(Bq, L, 3, H, 64).unbind(2)
+        out = fn(q.contiguous(), k.contiguous(), v, 0.125)
+        (d,) = torch.autograd.grad(out, src, do.to(out.dtype))
+        return (out, *d.view(Bq, L, 3, H, 64).unbind(2))
+
+    want = run(attention_reference, f32)
+    names = ("o", "dq", "dk", "dv")
+    errs = {}
+    for route, fn, src in (("kernel", fused_attention, qkv),
+                           ("sdpa", sdpa_attention, qkv),
+                           ("wrong", _rolled_attention, f32)):
+        got = run(fn, src)
+        errs[route] = {n: float((a.float() - w).abs().max()
+                                / w.abs().max()) for n, a, w in
+                       zip(names, got, want)}
+    torch.cuda.synchronize()
+    return errs
+
+
+def p19_routes(model, args) -> dict:
+    """One FSKD forward of `args` on the kernel route against the plain
+    route, with the layer scales drawn U(0.2, 0.6) as for ViTPose's
+    seeded weights (flax's 1e-5, ~1e-3 after a few steps, leaves each
+    block adding ~0.1% of attention to the residual, so a wrong kernel
+    would not show), restored after: the three outputs, and the query
+    encode's last patch map (FSKD pools it away, so per-token faults show
+    there first). The same gate reads a zero attention, which must fail
+    it, and one with values one token off, which reads only ~2x the
+    kernel route's bf16 noise here (FSKD's outputs pool over tokens):
+    p19_attention, not this gate, holds K8/K8b to such faults. Returns
+    {route: {output: [max |diff|, mean |diff|] / max |plain|}}."""
+    import tpupose_torch.models.backbones.vit as vit_mod
+    from tpupose_torch._device import autocast_inputs
+    from tpupose_torch.models.backbones.vit import LayerScale
+    from tpupose_torch.ops.attention import fused_attention
+
+    scales = [m.gamma for m in model.modules() if isinstance(m, LayerScale)]
+    saved = [p.detach().clone() for p in scales]
+    g = torch.Generator().manual_seed(19)
+    outs = {}
+    try:
+        with torch.no_grad():
+            for p in scales:
+                p.copy_(torch.empty(p.shape).uniform_(0.2, 0.6, generator=g))
+            for route in ("plain", "kernel", "zero", "rolled"):
+                set_attention(model, "plain" if route == "plain"
+                              else "kernel")
+                if route in ("zero", "rolled"):
+                    vit_mod.fused_attention = (_zero_attention
+                                               if route == "zero"
+                                               else _rolled_attention)
+                try:
+                    outs[route] = dict(model(*args))
+                    x, ctx = autocast_inputs(args[2], model.compute_dtype,
+                                             model.param_dtype)
+                    with ctx:
+                        outs[route]["feature_map"] = \
+                            model.extractor.backbone(x)["feature_map"]
+                finally:
+                    vit_mod.fused_attention = fused_attention
+    finally:
+        set_attention(model, "kernel")
+        with torch.no_grad():
+            for p, v in zip(scales, saved):
+                p.copy_(v)
+    plain = outs.pop("plain")
+    return {r: {k: list(rel_err(o[k], plain[k])[1:])
+                for k in ("logits", "keypoints", "confidence",
+                          "feature_map")}
+            for r, o in outs.items()}
+
+
+def p19_fskd(results, card: str):
+    """19a: EpisodicTrainer on fskd_small.yaml (ViT-S/16 224x224, bf16,
+    5-way 1-shot 4 queries: 5 support and 20 query images an episode) on
+    _synthetic_class_dataset, 8 episodes (1 epoch): exactly 24 K8 and 24
+    K8b launches an episode (12 blocks, support and query encodes), no
+    other kernel; the loss finite; episodes/s. Then one FSKD forward on
+    the kernel route against the plain route (p19_routes), and K8/K8b at
+    the episode's two shapes against float32 plain (p19_attention).
+    Returns (readings, the trainer)."""
+    from tpupose_torch.engine.episodic_trainer import EpisodicTrainer
+
+    tr = EpisodicTrainer(_cfg(FSKD_SMALL, {
+        "data.episodes_per_epoch": str(P19_EPISODES), "train.epochs": "1",
+        "train.output_dir": str(P18_DIR / "fskd")}), device="cuda")
+    times, losses = [], []
+    step = tr.train_step
+
+    def logged(ep):
+        m = step(ep)
+        losses.append(m["loss"])
+        return m
+
+    tr.train_step = logged
+    _timed_steps(tr, "train_step", times)
+    _p19_reset()
+    t0 = time.perf_counter()
+    tr.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _p19_counts()
+    n = P19_EPISODES
+    _p19_check("19a", counts, {"flash_attention": 24 * n,
+                               "flash_attention_bwd": 24 * n})
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"phase 19a: losses {losses}")
+    steady = (n - 1) / sum(times[1:])
+    del tr.train_step
+    ep = tr.to_device(tr.episodes[0])
+    busy = _p18_busy(lambda _, e: tr.train_step(e), None, ep)
+    args = (ep["support_images"], ep["support_labels"], ep["query_images"])
+    routes = p19_routes(tr.model, args)
+    direct = {f"({b}, 201, 6, 64)": p19_attention(b, 190 + b)
+              for b in (5, 20)}
+    log(f"phase 19a FSKD ViT-S/16 224x224 bf16 5-way 1-shot 4-query on "
+        f"{card}: {n} episodes in {wall:.2f} s ({n / wall:.2f} episodes/s "
+        f"with the first; {steady:.2f} episodes/s over episodes 2-{n}); "
+        f"launches {counts}; losses {[round(v, 4) for v in losses]}; a "
+        f"step on a device episode under torch.profiler (3 steps) "
+        f"{json.dumps(busy)}; "
+        f"layer scales U(0.2, 0.6), [max, mean] |diff| / max |plain| of the "
+        f"kernel route and of two wrong attentions (zero; values one token "
+        f"off): {json.dumps(routes)} (tol {P19_FSKD_TOL}, mean "
+        f"{P19_FSKD_MEAN_TOL}); K8/K8b through "
+        f"autograd vs float32 plain, max |diff| / max |plain| of o, dq, "
+        f"dk, dv, beside SDPA's and the wrong attention's: "
+        f"{json.dumps(direct)} (tol 2e-2 and 2x SDPA's)")
+    def passes(route):
+        return all(mx <= P19_FSKD_TOL and mean <= P19_FSKD_MEAN_TOL
+                   for mx, mean in routes[route].values())
+
+    if not passes("kernel"):
+        raise AssertionError(f"phase 19a: kernel route vs plain "
+                             f"{routes['kernel']} (tol {P19_FSKD_TOL}, "
+                             f"mean {P19_FSKD_MEAN_TOL})")
+    if passes("zero"):
+        raise AssertionError(f"phase 19a: the route gate passes a zero "
+                             f"attention {routes['zero']}")
+    for shape, errs in direct.items():
+        for n_, e in errs["kernel"].items():
+            lib, bad = errs["sdpa"][n_], errs["wrong"][n_]
+            if not (e <= 2e-2 and e <= 2 * lib):
+                raise AssertionError(f"phase 19a: K8/K8b at {shape}: {n_} "
+                                     f"{e:.4g} of max |plain| (tol 2e-2 "
+                                     f"and 2x SDPA's {lib:.4g})")
+            if bad <= 2e-2:
+                raise AssertionError(f"phase 19a: the gate at {shape} "
+                                     f"passes a wrong attention ({n_} "
+                                     f"{bad:.4g})")
+    row = {"episodes": n, "k8_launches": counts["flash_attention"],
+           "k8b_launches": counts["flash_attention_bwd"],
+           "episodes_per_s": n / wall, "steady_episodes_per_s": steady,
+           "losses": losses, "vs_plain": routes, "at_fskd_shapes": direct,
+           "step_profile": busy}
+    return row, tr
+
+
+def p19_maml(tr, card: str):
+    """19b: maml_adapt, 3 inner steps on one episode's support set:
+    exactly 24 K8 and 24 K8b launches an inner step, the support loss
+    falls; a backward of the query loss through the adapted parameters
+    (second order through K8b) raises RuntimeError from
+    once_differentiable."""
+    from torch.func import functional_call
+
+    from tpupose_torch.models.fskd import fskd_episode_loss, maml_adapt
+
+    model = tr.model
+    host = tr.episodes[1]
+    ep = tr.to_device(host)
+    s_imgs, s_lbl = ep["support_images"], ep["support_labels"]
+    s_kpts = torch.from_numpy(host["support_keypoints"]).cuda()
+    s_vis = torch.from_numpy(host["support_visibility"]).cuda()
+
+    def support_loss(params):
+        with torch.no_grad():
+            out = functional_call(model, params, (s_imgs, s_lbl, s_imgs))
+            return float(fskd_episode_loss(out, s_lbl, s_kpts, s_vis)[0])
+
+    def adapt(*_):
+        return maml_adapt(model, None, s_imgs, s_lbl, s_kpts, s_vis,
+                          inner_lr=0.01, inner_steps=P19_INNER_STEPS)
+
+    before = support_loss(dict(model.named_parameters()))
+    _p19_reset()
+    t0 = time.perf_counter()
+    adapted = adapt()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    counts = _p19_counts()
+    k = P19_INNER_STEPS
+    _p19_check("19b", counts, {"flash_attention": 24 * k,
+                               "flash_attention_bwd": 24 * k})
+    after = support_loss(adapted)
+    if not after < before:
+        raise AssertionError(f"phase 19b: support loss {before} -> {after}")
+    out = functional_call(model, adapted, (s_imgs, s_lbl,
+                                           ep["query_images"]))
+    outer, _ = fskd_episode_loss(out, ep["query_labels"],
+                                 ep["query_keypoints"],
+                                 ep["query_visibility"])
+    try:
+        outer.backward()
+    except RuntimeError as e:
+        raised = str(e)
+    else:
+        raise AssertionError("phase 19b: the second-order backward through "
+                             "K8b did not raise")
+    if "once_differentiable" not in raised:
+        raise AssertionError(f"phase 19b: raised {raised!r}")
+    model.zero_grad(set_to_none=True)
+    busy = _p18_busy(adapt, None, None, n=1)
+    log(f"phase 19b maml_adapt ({k} inner steps, lr 0.01, 5 support "
+        f"images) on {card}: {ms:.1f} ms the first call; later calls "
+        f"under torch.profiler {json.dumps(busy)}; launches of the first "
+        f"{counts}; support loss "
+        f"{before:.5f} -> {after:.5f}; outer backward raised: "
+        f"{raised.splitlines()[0][:100]!r}")
+    return {"inner_steps": k, "k8_launches": counts["flash_attention"],
+            "k8b_launches": counts["flash_attention_bwd"], "ms": ms,
+            "profile": busy,
+            "support_loss": [before, after], "second_order_raises": True}
+
+
+def p19_fcmae(card: str):
+    """19c: MAETrainer on fcmae.yaml (ConvNeXtV2-atto 224x224, B=64,
+    patch 32: 49 cells, 29 masked; decoder 512), 4 steps (one epoch of
+    256 synthetic crops): no kernel launched, losses finite; img/s."""
+    from tpupose_torch.engine.episodic_trainer import MAETrainer
+
+    tr = MAETrainer(_cfg(FCMAE_CFG, {
+        "train.epochs": "1", "train.output_dir": str(P18_DIR / "fcmae")}),
+        device="cuda")
+    times, losses = [], []
+    step = tr.train_step
+
+    def logged(images):
+        loss = step(images)
+        losses.append(loss)
+        return loss
+
+    tr.train_step = logged
+    _timed_steps(tr, "train_step", times)
+    torch.cuda.reset_peak_memory_stats()
+    _p19_reset()
+    tr.train()
+    counts = _p19_counts()
+    _p19_check("19c", counts, {})
+    losses = [float(v) for v in losses]
+    B = tr.cfg.train.batch_size
+    masked = round(0.6 * 49)
+    if len(losses) != 4 or not all(np.isfinite(losses)) or masked != 29:
+        raise AssertionError(f"phase 19c: losses {losses}")
+    ips = B * (len(times) - 1) / sum(times[1:])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"phase 19c FCMAE ConvNeXtV2-atto 224x224 B={B} (49 cells, "
+        f"{masked} masked, decoder 512) on {card}: 4 steps, losses "
+        f"{[round(v, 5) for v in losses]}; train step {ips:.1f} img/s over "
+        f"steps 2-4 (step 1 {1e3 * times[0]:.1f} ms), peak {peak:.2f} GiB; "
+        f"launches {counts}")
+    del tr
+    torch.cuda.empty_cache()
+    return {"losses": losses, "img_per_s": ips, "peak_gib": peak}
+
+
+def _r50_torchvision_sd(seed: int = 19) -> dict:
+    """A seeded torchvision-style ResNet-50 state dict: conv weights
+    N(0, 0.1), BatchNorm affines and running statistics around (1, 0),
+    a 1000-way classifier the backbone does not have."""
+    rs = np.random.RandomState(seed)
+    sd = {}
+
+    def t(name, *shape, scale=0.1, offset=0.0):
+        sd[name] = torch.from_numpy(
+            (rs.randn(*shape) * scale + offset).astype(np.float32))
+
+    def bn(name, c):
+        t(f"{name}.weight", c, offset=1.0)
+        t(f"{name}.bias", c)
+        t(f"{name}.running_mean", c, scale=0.05)
+        sd[f"{name}.running_var"] = torch.from_numpy(
+            (1 + rs.rand(c) * 0.1).astype(np.float32))
+
+    t("conv1.weight", 64, 3, 7, 7)
+    bn("bn1", 64)
+    c_in = 64
+    for li, (w, n) in enumerate(zip((64, 128, 256, 512), (3, 4, 6, 3))):
+        for j in range(n):
+            p = f"layer{li + 1}.{j}"
+            t(f"{p}.conv1.weight", w, c_in, 1, 1)
+            bn(f"{p}.bn1", w)
+            t(f"{p}.conv2.weight", w, w, 3, 3)
+            bn(f"{p}.bn2", w)
+            t(f"{p}.conv3.weight", 4 * w, w, 1, 1)
+            bn(f"{p}.bn3", 4 * w)
+            if j == 0:
+                t(f"{p}.downsample.0.weight", 4 * w, c_in, 1, 1)
+                bn(f"{p}.downsample.1", 4 * w)
+            c_in = 4 * w
+    t("fc.weight", 1000, 2048)
+    t("fc.bias", 1000)
+    return sd
+
+
+def p19_pretrained(results, card: str):
+    """19d: a seeded torchvision R50 checkpoint under P18_DIR; Trainer on
+    simple_baseline.yaml with model.pretrained and device affine: before
+    the first step the backbone's parameters and BatchNorm statistics
+    equal the file's, the EMA the parameters; 2 steps, exactly one K7
+    launch each and no other kernel. Then one DetectHead decode (80
+    classes, reg_max 16, 640x640's three levels) on the card against the
+    CPU in float32."""
+    from tpupose_torch.models.yolo_head import DetectHead
+
+    sd = _r50_torchvision_sd()
+    pth = P18_DIR / "r50_torchvision.pth"
+    torch.save(sd, pth)
+    tr = _p18_trainer("pretrained", {"model.pretrained": str(pth),
+                                     "train.ema_decay": "0.999"})
+    own = tr.model.state_dict()
+    bad = [k for k, v in sd.items() if not k.startswith("fc.")
+           and not torch.equal(own[f"backbone.{k}"].cpu(), v)]
+    ema_ok = all(torch.equal(e, p) for e, p in
+                 zip(tr.state.ema, tr.model.parameters()))
+    if bad or not ema_ok:
+        raise AssertionError(f"phase 19d: {len(bad)} backbone tensors differ "
+                             f"from the file (e.g. {bad[:3]}), EMA "
+                             f"{'equal' if ema_ok else 'differs'}")
+    batches = iter(tr._prefetched(tr.train_loader))
+    _p19_reset()
+    ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        m = tr.train_step(tr.state, next(batches))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if not torch.isfinite(m["loss"]):
+            raise AssertionError("phase 19d: loss not finite")
+    counts = _p19_counts()
+    _p19_check("19d", counts, {"affine_warp_full": 2})
+    results["affine_warp"]["launches_pretrained"] = counts["affine_warp_full"]
+    del tr
+    torch.cuda.empty_cache()
+
+    g = torch.Generator().manual_seed(19)
+    head = DetectHead((64, 128, 256), num_classes=80, reg_max=16).eval()
+    feats = [torch.randn((2, c, 640 // s, 640 // s), generator=g)
+             for c, s in ((64, 8), (128, 16), (256, 32))]
+    with torch.no_grad():
+        want = head(feats)
+        got = head.cuda()([f.cuda() for f in feats]).cpu()
+    err = float((got - want).abs().max() / want.abs().max())
+    scores = got[..., 4:]
+    if got.shape != (2, 8400, 84) or not torch.isfinite(got).all() \
+            or err > 1e-3 or scores.min() < 0 or scores.max() > 1:
+        raise AssertionError(f"phase 19d: DetectHead {tuple(got.shape)}, "
+                             f"card vs CPU {err:.3g}")
+    log(f"phase 19d Trainer R50 256x192 B=64 from a torchvision checkpoint "
+        f"({len(sd) - 2} tensors) on {card}: backbone and BatchNorm "
+        f"statistics equal the file's, EMA equal; 2 steps "
+        f"{[round(v, 1) for v in ms]} ms, launches {counts}; DetectHead "
+        f"decode (2, 8400, 84) card vs CPU float32 max rel {err:.3g}")
+    return {"k7_launches": counts["affine_warp_full"], "step_ms": ms,
+            "detect_head_err": err}
+
+
+def phase19(results, card: str) -> dict:
+    """Phase 19 (in the phase-18 child process): few-shot and
+    pretraining (19a-c) and pretrained weights and DetectHead (19d)."""
+    t0 = time.perf_counter()
+    fskd, tr = p19_fskd(results, card)
+    readings = {"fskd": fskd, "maml": p19_maml(tr, card)}
+    del tr
+    torch.cuda.empty_cache()
+    readings["fcmae"] = p19_fcmae(card)
+    readings["pretrained"] = p19_pretrained(results, card)
+    readings["phase_seconds"] = time.perf_counter() - t0
+    log(f"phase 19 seconds: {readings['phase_seconds']:.1f}")
+    results["flash_attention"]["phase19"] = readings
+    results["flash_attention_bwd"]["launches_phase19"] = (
+        fskd["k8b_launches"] + readings["maml"]["k8b_launches"])
+    return readings
+
+
 def phase18_main(out_path: Path) -> int:
     """Phase 18 on its own (a child process main() starts, as phase
     17's): the training leftovers (18a distillation, 18b gradient
     accumulation and the seven optax rules, 18c SWA) and detection-box
-    evaluation (18d); its rows of the kernels JSON go to `out_path`."""
+    evaluation (18d), then phase 19 (few-shot, MAML, FCMAE, pretrained
+    weights and DetectHead); their rows of the kernels JSON go to
+    `out_path`."""
     from tpupose_torch.ops import _build
 
     torch.backends.cudnn.allow_tf32 = False
@@ -3498,7 +4011,8 @@ def phase18_main(out_path: Path) -> int:
     t_phase = time.perf_counter()
     _build.build_all()
     results = {k: {} for k in ("stem_pool", "layer1", "bridge",
-                               "dark_decode", "affine_warp")}
+                               "dark_decode", "affine_warp",
+                               "flash_attention", "flash_attention_bwd")}
     shutil.rmtree(P18_DIR, ignore_errors=True)
     P18_DIR.mkdir(parents=True)
     try:
@@ -3506,10 +4020,11 @@ def phase18_main(out_path: Path) -> int:
         readings["accumulate"], ckpt = p18_accumulate(results, card)
         readings["swa"] = p18_swa(results, ckpt, card)
         readings["det_eval"] = p18_det_eval(results, card)
+        readings["phase_seconds"] = time.perf_counter() - t_phase
+        log(f"phase 18 seconds: {readings['phase_seconds']:.1f}")
+        phase19(results, card)
     finally:
         shutil.rmtree(P18_DIR, ignore_errors=True)
-    readings["phase_seconds"] = time.perf_counter() - t_phase
-    log(f"phase 18 seconds: {readings['phase_seconds']:.1f}")
     results["affine_warp"]["phase18"] = readings
     out_path.write_text(json.dumps(results))
     return 0
@@ -4288,7 +4803,8 @@ def main() -> int:
 
     # -- phase 18: the training leftovers (distillation, gradient
     # accumulation and the seven optax rules, SWA) and detection-box
-    # evaluation (K1-K4), in a child process, as phases 11-17 -------------
+    # evaluation (K1-K4), in a child process, as phases 11-17; phase 19
+    # (few-shot, MAML, FCMAE, pretrained weights) in the same process ----
     phase18 = ROOT / "build" / "chip_smoke_phase18.json"
     subprocess.run([sys.executable, str(Path(__file__).resolve()),
                     "--phase18", str(phase18)], check=True, timeout=400)

@@ -678,6 +678,38 @@ def test_flash_attention_backward_is_deterministic(gpu, L):
         assert torch.equal(a, b), name
 
 
+@pytest.mark.parametrize("B", [5, 20], ids=["support", "query"])
+def test_fused_attention_at_fskd_shapes(gpu, B):
+    """K8 and K8b through fused_attention's autograd at FSKD ViT-S 224's
+    (B, 201, 6, 64) (5 support or 20 query crops), q and k contiguous and
+    v a strided view of the qkv projection as RopeAttention hands them:
+    o, dq, dk, dv each within 2e-2 of the max |float32 plain| (the bf16
+    bound of the tests above); values one token off read far above it."""
+    from tpupose_torch.ops.attention import (attention_reference,
+                                             fused_attention)
+
+    g = torch.Generator().manual_seed(80 + B)
+    qkv = torch.randn((B, 201, 3 * 6 * 64), generator=g) \
+        .to(gpu, torch.bfloat16).requires_grad_()
+    do = torch.randn((B, 201, 6, 64), generator=g).to(gpu, torch.bfloat16)
+    f32 = qkv.detach().float().requires_grad_()
+
+    def run(src, roll=0):
+        q, k, v = src.view(B, 201, 3, 6, 64).unbind(2)
+        v_ = v.roll(roll, 1) if roll else v
+        out = (attention_reference(q, k, v_, 0.125) if src is f32
+               else fused_attention(q.contiguous(), k.contiguous(), v_))
+        (d,) = torch.autograd.grad(out, src, do.to(out.dtype))
+        return (out, *d.view(B, 201, 3, 6, 64).unbind(2))
+
+    want = run(f32)
+    for name, a, w in zip(("o", "dq", "dk", "dv"), run(qkv), want):
+        assert torch.isfinite(a.float()).all(), name
+        assert _rel_max(a, w) <= 2e-2, (name, _rel_max(a, w))
+    for name, a, w in zip(("o", "dq", "dk", "dv"), run(f32, roll=1), want):
+        assert _rel_max(a, w) > 0.1, (name, _rel_max(a, w))
+
+
 def test_fused_attention_backward_on_the_card_goes_to_k8b(gpu):
     """autograd through fused_attention on CUDA tensors: K8 saves its LSE
     and the backward is one K8b launch; the gradients agree with autograd
@@ -1294,3 +1326,90 @@ def test_det_eval_batch_launches_exactly(card, tmp_path):
     assert [w.launches for w in wrappers] == [2 * n, 6 * n, 2 * n, n]
     assert {"mAP", "mAP50", "AR"} <= set(out)
     assert all(np.isfinite(v) for v in out.values())
+
+
+def test_second_order_backward_through_k8b_raises(gpu):
+    """K8b writes its gradients through ctypes into tensors without a
+    graph. Where the output gradient itself carries a graph (here through
+    `w`; in MAML through the layers after the attention), a second-order
+    backward would follow only that path and drop the attention terms
+    silently: the backward is once_differentiable and raises instead. The
+    first-order gradient with create_graph still runs K8b."""
+    from tpupose_torch.ops.attention import fused_attention
+    from tpupose_torch.ops.cuda_attention import flash_attention_backward
+
+    g = torch.Generator(device=gpu).manual_seed(16)
+    q, k, v, w = (torch.randn((2, 37, 2, 64), device=gpu,
+                              dtype=torch.bfloat16,
+                              generator=g).requires_grad_()
+                  for _ in range(4))
+    b0 = flash_attention_backward.launches
+    (gq,) = torch.autograd.grad((fused_attention(q, k, v) * w).sum(), q,
+                                create_graph=True)
+    assert flash_attention_backward.launches == b0 + 1
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        (gq.float() ** 2).sum().backward()
+
+
+def test_fskd_step_and_maml_launch_exactly(gpu):
+    """FSKD on ViT-S (bf16 autocast over float32 masters) at 64x64: a
+    train step launches K8 24 times (12 blocks, support and query
+    encodes) and K8b 24 times; maml_adapt 24 of each an inner step, and a
+    backward through its adapted parameters raises (second order through
+    K8b)."""
+    from torch.func import functional_call
+
+    from tpupose_torch.models.fskd import (FSKD, fskd_episode_loss,
+                                           init_fskd_like_flax, maml_adapt)
+    from tpupose_torch.ops.cuda_attention import (flash_attention,
+                                                  flash_attention_backward)
+
+    model = FSKD(n_way=2, num_keypoints=3, dim=64, vit_size="small",
+                 dtype=torch.bfloat16, device="cpu",
+                 param_dtype=torch.float32)
+    init_fskd_like_flax(model, torch.Generator().manual_seed(0))
+    model = model.to(gpu).train()
+    g = torch.Generator(device=gpu).manual_seed(17)
+    imgs = torch.rand((4, 64, 64, 3), device=gpu, generator=g)
+    lbl = torch.tensor([0, 0, 1, 1], device=gpu)
+    kpts = torch.rand((4, 3, 2), device=gpu, generator=g)
+    vis = torch.full((4, 3), 2.0, device=gpu)
+    flash_attention.launches = flash_attention_backward.launches = 0
+    loss, _ = fskd_episode_loss(model(imgs, lbl, imgs), lbl, kpts, vis)
+    loss.backward()
+    assert (flash_attention.launches, flash_attention_backward.launches) \
+        == (24, 24)
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters()
+               if p.grad is not None)
+    model.zero_grad(set_to_none=True)
+    flash_attention.launches = flash_attention_backward.launches = 0
+    adapted = maml_adapt(model, None, imgs, lbl, kpts, vis, inner_lr=0.01,
+                         inner_steps=2)
+    assert (flash_attention.launches, flash_attention_backward.launches) \
+        == (48, 48)
+    out = functional_call(model, adapted, (imgs, lbl, imgs))
+    outer, _ = fskd_episode_loss(out, lbl, kpts, vis)
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        outer.backward()
+
+
+def test_fcmae_step_launches_no_kernel(gpu):
+    """FCMAE (ConvNeXtV2-atto, bf16 autocast) at 64x64: a train step runs
+    none of the hand kernels; the loss is finite."""
+    from tpupose_torch.models.fcmae import FCMAE, init_fcmae_like_flax
+    from tpupose_torch.ops.cuda_attention import (flash_attention,
+                                                  flash_attention_backward)
+    from tpupose_torch.ops.cuda_warp import affine_warp
+
+    model = FCMAE(size="atto", decoder_dim=64, dtype=torch.bfloat16,
+                  device="cpu", param_dtype=torch.float32)
+    init_fcmae_like_flax(model, torch.Generator().manual_seed(0))
+    model = model.to(gpu).train()
+    wrappers = (flash_attention, flash_attention_backward, affine_warp)
+    before = [w.launches for w in wrappers]
+    g = torch.Generator(device=gpu).manual_seed(18)
+    loss, out = model(torch.rand((4, 64, 64, 3), device=gpu, generator=g),
+                      generator=g)
+    loss.backward()
+    assert [w.launches for w in wrappers] == before
+    assert torch.isfinite(loss) and out["pred"].dtype == torch.float32

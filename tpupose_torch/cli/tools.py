@@ -10,7 +10,7 @@ a checkpoint directory of its own that loads wherever a checkpoint does
 (`model.checkpoint`, `--ckpt`, `restore_for_eval`). The template state
 tracks no EMA, so the raw parameters are averaged, as in JAX. The data
 tools (`check-data`, `check-labels`, `resize`, `convert-coco`) are not
-ported yet (ROADMAP Queue A item 12) and raise.
+ported yet (ROADMAP Queue A item 12b) and raise.
 """
 
 from __future__ import annotations
@@ -61,7 +61,7 @@ def main(argv=None):
     args, rest = p.parse_known_args(argv)
     if args.cmd in _DATA_TOOLS:
         raise ValueError(f"cli.tools {args.cmd} is not ported to "
-                         f"tpupose_torch yet (ROADMAP Queue A item 12)")
+                         f"tpupose_torch yet (ROADMAP Queue A item 12b)")
     if rest:
         p.error(f"unrecognized arguments: {' '.join(rest)}")
     average_ckpts(args.cfg, args.ckpt, args.out, args.last, args.steps,

@@ -10,6 +10,12 @@ parse args -> merge YAML -> Trainer.train().
         --cfg tpupose/configs/method/dinov3_vitpose.yaml \
         [model.freeze_backbone=false] [data.mosaic_prob=0.5]
 
+    python -m tpupose_torch.cli.train \
+        --cfg tpupose/configs/method/fskd_small.yaml
+    python -m tpupose_torch.cli.train --cfg tpupose/configs/method/fcmae.yaml
+
+model.name fskd trains with the EpisodicTrainer, fcmae with the
+MAETrainer (engine/episodic_trainer.py), every other model with Trainer.
 `--device` defaults to cuda (raises where CUDA is absent); `--device cpu`
 trains on the CPU. `--test` runs the loss-only `validate()`, then the
 metric `evaluate()` (heatmap family: PCK, MPJPE and COCO OKS-AP by
@@ -28,6 +34,16 @@ def main(argv=None):
     args = parse_args(argv)
     cfg = update_config(default_config(), args)
     try:
+        if cfg.model.name == "fskd":
+            from tpupose_torch.engine.episodic_trainer import EpisodicTrainer
+
+            EpisodicTrainer(cfg, device=args.device).train()
+            return 0
+        if cfg.model.name == "fcmae":
+            from tpupose_torch.engine.episodic_trainer import MAETrainer
+
+            MAETrainer(cfg, device=args.device).train()
+            return 0
         trainer = Trainer(cfg, device=args.device)
         if args.test:
             loss = trainer.validate()

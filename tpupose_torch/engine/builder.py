@@ -1,7 +1,7 @@
 """Builder: config -> objects (counterpart of tpupose/engine/builder.py).
 
 Ported: `model()` (simple_baseline, hrnet, vitpose, dinov3_pose, simcc,
-deeppose, bottom_up), `loss()` (joints_mse, joints_mse_weighted,
+deeppose, bottom_up, fskd, fcmae), `loss()` (joints_mse, joints_mse_weighted,
 DINOv3Pose's pose_compute and v8_pose, coord_mse, rle, ae, simcc_kl),
 `lr_scheduler()`, `optimizer()` (head/base lr
 split, frozen backbone, global-norm clipping), `dataset()` (synthetic,
@@ -29,9 +29,6 @@ def is_backbone_path(name: str) -> bool:
     return name.startswith("backbone.")
 
 
-_MODEL_ITEMS = {"fskd": "Queue A item 10", "fcmae": "Queue A item 10"}
-
-
 def _unported(kind: str, name: str, item: str):
     return ValueError(f"{kind} {name!r} is not ported to tpupose_torch yet "
                       f"(ROADMAP {item})")
@@ -45,21 +42,22 @@ class Builder:
     # -- model -----------------------------------------------------------------
     def model(self):
         """SimpleBaseline, HRNetPose, ViTPose, DINOv3Pose, SimCCPose,
-        DeepPose (RLE head with loss.name "rle") or BottomUpPose with
-        flax's init drawn from a generator seeded by train.seed, float32 master
-        weights, and bf16 autocast when train.mixed_precision (else
-        float32 throughout). train.remat checkpoints the blocks
-        (models/remat.py; ViTPose's through its own DinoViT)."""
+        DeepPose (RLE head with loss.name "rle"), BottomUpPose, FSKD (n_way
+        from data.n_way, dim 256, the ViT size after "vit_" in
+        model.backbone, else small, as JAX's EpisodicTrainer builds it) or
+        FCMAE (the ConvNeXt size after "convnext_", else atto, as JAX's
+        MAETrainer) with flax's init drawn from a generator seeded by
+        train.seed, float32 master weights, and bf16 autocast when
+        train.mixed_precision (else float32 throughout). train.remat
+        checkpoints the blocks (models/remat.py; ViTPose's through its own
+        DinoViT)."""
         from tpupose_torch.models import MODELS
         from tpupose_torch.models.simple_baseline import init_like_flax
 
         m = self.cfg.model
         if m.name not in MODELS:
-            raise _unported("model", m.name, _MODEL_ITEMS.get(
-                m.name, "Queue A item 10"))
-        if m.pretrained:
-            raise _unported("model.pretrained", m.pretrained,
-                            "Queue A item 12")
+            raise ValueError(f"unknown model {m.name!r}; have "
+                             f"{sorted(MODELS)}")
         remat = self.cfg.train.remat
         dtype = (torch.bfloat16 if self.cfg.train.mixed_precision
                  else torch.float32)
@@ -120,6 +118,24 @@ class Builder:
                                  device="cpu", param_dtype=torch.float32,
                                  remat=remat)
             init_like_flax(model, g)
+        elif m.name == "fskd":
+            from tpupose_torch.models.fskd import FSKD, init_fskd_like_flax
+
+            size = m.backbone.replace("vit_", "") \
+                if m.backbone.startswith("vit") else "small"
+            model = FSKD(n_way=self.cfg.data.n_way,
+                         num_keypoints=m.num_keypoints, dim=256,
+                         vit_size=size, dtype=dtype, device="cpu",
+                         param_dtype=torch.float32)
+            init_fskd_like_flax(model, g)
+        elif m.name == "fcmae":
+            from tpupose_torch.models.fcmae import FCMAE, init_fcmae_like_flax
+
+            size = m.backbone.replace("convnext_", "") \
+                if "convnext" in m.backbone else "atto"
+            model = FCMAE(size=size, dtype=dtype, device="cpu",
+                          param_dtype=torch.float32)
+            init_fcmae_like_flax(model, g)
         elif m.name == "hrnet":
             from tpupose_torch.models.backbones.hrnet import HRNetPose
 
@@ -245,7 +261,7 @@ class Builder:
                 num_classes=self.cfg.model.num_classes,
                 max_instances=d.max_instances)
         if d.name != "synthetic":
-            raise _unported("dataset", d.name, "Queue A item 12")
+            raise _unported("dataset", d.name, "Queue A item 12b")
         from tpupose_torch.data.synthetic import SyntheticTopDownDataset
 
         n = 256 if split == "train" else 64

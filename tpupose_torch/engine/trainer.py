@@ -25,8 +25,10 @@ PCKh (K > 9), MPJPE, AUC, EPE in source pixels; bottom-up:
 `eval.int8`), heatmap distillation from a frozen teacher
 (`train.distill_cfg`, `train.distill_ckpt`), `train` with the
 SIGTERM/SIGINT checkpoint guard, `save_checkpoint` and
-`load_checkpoint`. Not ported yet (ROADMAP Queue A): pretrained weights
-and the device mesh (item 12).
+`load_checkpoint`, and pretrained backbone weights (`model.pretrained`, a
+torch checkpoint loaded by models/pretrained.load_pretrained and copied
+into the EMA). Not ported yet (ROADMAP Queue A): the device mesh (item
+12d).
 
 Runs on `device` (default "cuda"; raises where CUDA is absent). On the
 card a ViTPose step runs the flash-attention kernels K8 (forward) and K8b
@@ -96,6 +98,15 @@ class Trainer:
         opt = self.builder.optimizer(self.model, self.steps_per_epoch)
         self.state = TrainState(self.model, opt,
                                 ema_decay=cfg.train.ema_decay)
+        if cfg.model.pretrained:
+            from tpupose_torch.models.pretrained import load_pretrained
+
+            if load_pretrained(self.model, cfg.model.pretrained,
+                               cfg.model.backbone) \
+                    and self.state.ema is not None:
+                with torch.no_grad():
+                    torch._foreach_copy_(self.state.ema,
+                                         list(self.model.parameters()))
         self.loss_fn = self.builder.loss()
         self.teacher = None                 # the heatmap family's, distilling
         dev_aff = cfg.data.device_affine

@@ -15,6 +15,8 @@ MODELS = {
     "deeppose": "tpupose_torch.models.deeppose:DeepPose",
     "simcc": "tpupose_torch.models.simcc:SimCCPose",
     "bottom_up": "tpupose_torch.models.bottom_up:BottomUpPose",
+    "fskd": "tpupose_torch.models.fskd:FSKD",
+    "fcmae": "tpupose_torch.models.fcmae:FCMAE",
 }
 
 

@@ -75,10 +75,16 @@ class ConvNeXt(nn.Module):
         a = CONVNEXT_SIZES[size]
         return cls(a["depths"], a["dims"], v2=v2, remat=remat)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None):
+        """`mask`: an optional (B, H/4, W/4) {0, 1} patch mask (FCMAE's
+        masked-dense encoder): masked cells are zeroed once, after the
+        stem's LayerNorm."""
         feats = []
-        for down, stage in zip(self.downsample_layers, self.stages):
+        for i, (down, stage) in enumerate(zip(self.downsample_layers,
+                                              self.stages)):
             x = down(x)
+            if i == 0 and mask is not None:
+                x = x * (1.0 - mask[:, None].to(x.dtype))
             for blk in stage:
                 x = block_call(blk, x, self.remat)
             feats.append(x)

@@ -26,13 +26,12 @@ weights under bf16 autocast where `dtype` and `param_dtype` differ.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Sequence
 
 import torch
 from torch import nn
 
-from tpupose_torch._device import resolve_device
+from tpupose_torch._device import autocast_inputs, resolve_device
 from tpupose_torch.models.backbones.convnext import ConvNeXt
 from tpupose_torch.models.backbones.vit import VIT_SIZES, DinoViT
 from tpupose_torch.models.necks import PAN, SPPF, FeatureAdaptor, resize_to
@@ -130,11 +129,7 @@ class DINOv3Pose(nn.Module):
         return (out, deepest) if return_features else out
 
     def _autocast(self, x):
-        """(input, context): bf16 autocast over float32 masters, or the
-        input cast to the parameters' dtype."""
-        if self.compute_dtype == self.param_dtype:
-            return x.to(self.param_dtype), contextlib.nullcontext()
-        return x, torch.autocast(x.device.type, dtype=self.compute_dtype)
+        return autocast_inputs(x, self.compute_dtype, self.param_dtype)
 
     def forward(self, x, return_features: bool = False):
         x, ctx = self._autocast(x)

@@ -1,6 +1,6 @@
 """Neck building blocks (counterpart of tpupose/models/necks.py):
-ConvBlock, Bottleneck, BottleneckCSP, SPPF, PAN, FeatureAdaptor and the
-ConvNeXt block with GRN and DropPath.
+ConvBlock, Bottleneck, BottleneckCSP, SPPF, PAN, FeatureAdaptor,
+AttentionBlock and the ConvNeXt block with GRN and DropPath.
 
 Every module here takes and returns NCHW tensors (the models keep them in
 `channels_last` memory format, NHWC in memory). Where the port must not
@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpupose_torch.models.attention import Attention
 from tpupose_torch.models.backbones.resnet import BatchNorm2d
 
 LN_EPS = 1e-6
@@ -149,6 +150,27 @@ class FeatureAdaptor(nn.Module):
 
     def forward(self, feats):
         return [lvl(f) for lvl, f in zip(self.levels, feats)]
+
+
+class AttentionBlock(nn.Module):
+    """Transformer block over a feature map: the (H*W) tokens, row-major,
+    through pre-LayerNorm (epsilon 1e-6) MHSA (models/attention.Attention)
+    and a GELU (tanh) MLP, each with a residual, back to the map."""
+
+    def __init__(self, dim: int, num_heads: int = 8, mlp_ratio: float = 4.0):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.attn = Attention(dim, num_heads)
+        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.fc1 = nn.Linear(dim, int(dim * mlp_ratio))
+        self.fc2 = nn.Linear(int(dim * mlp_ratio), dim)
+
+    def forward(self, x):
+        B, C, H, W = x.shape
+        t = x.flatten(2).transpose(1, 2)                     # (B, H*W, C)
+        t = t + self.attn(self.norm1(t))
+        t = t + self.fc2(F.gelu(self.fc1(self.norm2(t)), approximate="tanh"))
+        return t.transpose(1, 2).reshape(B, C, H, W)
 
 
 class DropPath(nn.Module):

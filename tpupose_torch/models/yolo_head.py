@@ -1,6 +1,5 @@
-"""YOLO-style pose head (counterpart of tpupose/models/yolo_head.py:
-make_anchors, dist2bbox, dfl_integral / DFL, PoseHead; the DetectHead
-waits for ROADMAP Queue A item 12).
+"""YOLO-style heads (counterpart of tpupose/models/yolo_head.py:
+make_anchors, dist2bbox, dfl_integral / DFL, PoseHead, DetectHead).
 
 PoseHead takes the neck's NCHW maps (fine -> coarse). In training it
 returns the raw per-scale maps, NHWC (B, H, W, [4 * reg_max +] ncls +
@@ -175,3 +174,55 @@ class PoseHead(nn.Module):
         pieces = ([boxes] if boxes is not None else []) \
             + [cls, kpt.reshape(B, -1, self.nk)]
         return torch.cat(pieces, dim=-1)
+
+
+class DetectHead(nn.Module):
+    """YOLO detect head with the DFL box branch: per level a box branch
+    (two 3x3 ConvBlocks to c2, a float32 1x1 conv to 4 * reg_max, plus one
+    objectness channel with `objectness`) and a class branch (two 3x3
+    ConvBlocks to c3, a float32 1x1 conv to ncls with the prior bias).
+    Training returns the raw per-scale NHWC maps (B, H, W, box_ch + ncls);
+    eval mode the decoded (B, A, 4 + ncls): DFL boxes (xywh, input
+    pixels) and class sigmoids, times the objectness sigmoid with
+    `objectness` (the head3 variant)."""
+
+    def __init__(self, in_channels: Sequence[int], num_classes: int = 80,
+                 reg_max: int = 16, strides=(8, 16, 32),
+                 objectness: bool = False):
+        super().__init__()
+        self.num_classes, self.reg_max = num_classes, reg_max
+        self.strides = tuple(strides)
+        self.objectness = objectness
+        self.box_ch = 4 * reg_max + (1 if objectness else 0)
+        c0 = in_channels[0]
+        c2 = max(16, c0 // 4, reg_max * 4)
+        c3 = max(c0, min(num_classes, 100))
+        self.box = nn.ModuleList(_Branch(c, self.box_ch, c2)
+                                 for c in in_channels)
+        self.cls = nn.ModuleList(_Branch(c, num_classes, c3)
+                                 for c in in_channels)
+        for br in self.cls:
+            nn.init.constant_(br.out.bias, PRIOR_BIAS)
+
+    def forward(self, feats):
+        outs = [torch.cat([self.box[i](f), self.cls[i](f)], 1)
+                .permute(0, 2, 3, 1) for i, f in enumerate(feats)]
+        if self.training:
+            return outs
+        return self.decode(outs)
+
+    def decode(self, outs):
+        """Per-scale NHWC raw maps -> (B, A, 4 + ncls) float32."""
+        shapes = [tuple(o.shape[1:3]) for o in outs]
+        anchors, strides = make_anchors(shapes, self.strides,
+                                        device=outs[0].device)
+        B = outs[0].shape[0]
+        C = self.box_ch + self.num_classes
+        flat = torch.cat([o.reshape(B, -1, C) for o in outs], 1).float()
+        nb = 4 * self.reg_max
+        dist = dfl_integral(flat[..., :nb], self.reg_max)
+        boxes = dist2bbox(dist, anchors[None]) * strides[None, :, None]
+        cls = torch.sigmoid(flat[..., self.box_ch:])
+        if self.objectness:
+            cls = cls * torch.sigmoid(flat[..., nb:self.box_ch])
+        return torch.cat([boxes, cls], dim=-1)

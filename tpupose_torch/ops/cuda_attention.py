@@ -15,7 +15,11 @@ Anything either kernel does not take raises ValueError; a CPU tensor
 raises too (ops/attention.fused_attention sends CPU tensors to the plain
 version and never calls this). `flash_attention.launches` and
 `flash_attention_backward.launches` count launches (K8b's two kernels,
-dq with the Delta preprocess, then dkv, count as one).
+dq with the Delta preprocess, then dkv, count as one). K8b writes its
+gradients through ctypes into plain tensors, which carry no graph, so
+the backward is once_differentiable: a second-order backward through it
+raises instead of silently dropping the attention terms (the TPU kernel's
+backward has no derivative rule either).
 """
 
 from __future__ import annotations
@@ -126,6 +130,7 @@ class _FlashAttention(torch.autograd.Function):
         return o
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, grad_out):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_backward(q, k, v, o, lse, grad_out,

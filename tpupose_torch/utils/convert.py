@@ -11,11 +11,14 @@ tpupose/utils/convert.py).
 flax DINOv3Pose tree (ConvNeXt or ViT backbone) onto
 `tpupose_torch.models.dinov3_pose.DINOv3Pose`; `from_flax_deeppose`,
 `from_flax_simcc` and `from_flax_bottom_up` map DeepPose (RLE head and
-flow included), SimCCPose and BottomUpPose trees. The first two serve two
-uses: giving the port the JAX package's weights (serving parity, and
-the same start for a training comparison), and mapping the params and
-batch stats (or the EMA params) that JAX reached after some train steps
-onto the port's names, to compare them with the port's own:
+flow included), SimCCPose and BottomUpPose trees; `from_flax_fskd`,
+`from_flax_fcmae`, `from_flax_meta_space` (its buffers included) and
+`from_flax_detect_head` map FSKD, FCMAE, MetaSpace and DetectHead trees.
+The converters serve two uses: giving the port the JAX package's
+weights (serving parity, and the same start for a training comparison),
+and mapping the params and batch stats (or the EMA params, or a
+gradient tree) that JAX reached after some train steps onto the port's
+names, to compare them with the port's own:
 
   - conv kernels HWIO -> OIHW, Dense kernels (in, out) -> (out, in);
   - flax ConvTranspose kernels (kh, kw, I, O) -> torch (I, O, kh, kw),
@@ -250,15 +253,16 @@ def _with_bias(sd: dict, prefix: str, p: Mapping, paths, path: str,
         paths[prefix] = path
 
 
-def _dino_vit(sd: dict, vp: Mapping, paths=None, path: str = "DinoViT_0"):
-    """A flax DinoViT subtree -> the port's DinoViT under `backbone.`."""
-    _with_bias(sd, "backbone.patch_embed.proj", vp["patch_embed"], paths,
+def _dino_vit(sd: dict, vp: Mapping, paths=None, path: str = "DinoViT_0",
+              prefix: str = "backbone"):
+    """A flax DinoViT subtree -> the port's DinoViT under `prefix.`."""
+    _with_bias(sd, f"{prefix}.patch_embed.proj", vp["patch_embed"], paths,
                f"{path}/patch_embed")
-    sd["backbone.cls_token"] = _t(vp["cls_token"])
-    sd["backbone.storage_tokens"] = _t(vp["storage_tokens"])
+    sd[f"{prefix}.cls_token"] = _t(vp["cls_token"])
+    sd[f"{prefix}.storage_tokens"] = _t(vp["storage_tokens"])
     i = 0
     while f"ViTBlock_{i}" in vp:
-        bp, t = vp[f"ViTBlock_{i}"], f"backbone.blocks.{i}"
+        bp, t = vp[f"ViTBlock_{i}"], f"{prefix}.blocks.{i}"
         bpath = f"{path}/ViTBlock_{i}"
         _ln(sd, f"{t}.norm1", bp["LayerNorm_0"])
         for name, key in (("qkv", "qkv"), ("proj", "proj")):
@@ -272,7 +276,7 @@ def _dino_vit(sd: dict, vp: Mapping, paths=None, path: str = "DinoViT_0"):
                    f"{bpath}/Dense_1", dense=True)
         sd[f"{t}.ls2.gamma"] = _t(bp["ls2"])
         i += 1
-    _ln(sd, "backbone.norm", vp["norm"])
+    _ln(sd, f"{prefix}.norm", vp["norm"])
 
 
 def from_flax_vitpose(variables: Mapping) -> dict:
@@ -294,15 +298,16 @@ def from_flax_vitpose(variables: Mapping) -> dict:
     return sd
 
 
-def _convnext(sd: dict, cp: Mapping, paths, path: str = "ConvNeXt_0"):
-    """A flax ConvNeXt subtree -> the port's ConvNeXt under `backbone.`:
+def _convnext(sd: dict, cp: Mapping, paths, path: str = "ConvNeXt_0",
+              prefix: str = "backbone"):
+    """A flax ConvNeXt subtree -> the port's ConvNeXt under `prefix.`:
     Conv_0 + LayerNorm_0 the stem, LayerNorm_i + Conv_i the downsample
     before stage i, ConvNeXtBlock_k numbered across stages (a block's
     stage told by its width)."""
     dims = []
     i = 0
     while f"Conv_{i}" in cp:
-        dl = f"backbone.downsample_layers.{i}"
+        dl = f"{prefix}.downsample_layers.{i}"
         conv, norm = (f"{dl}.0", f"{dl}.1") if i == 0 else (f"{dl}.1",
                                                             f"{dl}.0")
         _with_bias(sd, conv, cp[f"Conv_{i}"], paths, f"{path}/Conv_{i}")
@@ -314,20 +319,27 @@ def _convnext(sd: dict, cp: Mapping, paths, path: str = "ConvNeXt_0"):
     while f"ConvNeXtBlock_{k}" in cp:
         bp, bpath = cp[f"ConvNeXtBlock_{k}"], f"{path}/ConvNeXtBlock_{k}"
         stage = dims.index(int(np.shape(bp["Conv_0"]["kernel"])[-1]))
-        t = f"backbone.stages.{stage}.{counts[stage]}"
+        _convnext_block(sd, f"{prefix}.stages.{stage}.{counts[stage]}", bp,
+                        paths, bpath)
         counts[stage] += 1
-        _with_bias(sd, f"{t}.dwconv", bp["Conv_0"], paths, f"{bpath}/Conv_0")
-        _ln(sd, f"{t}.norm", bp["LayerNorm_0"])
-        _with_bias(sd, f"{t}.pwconv1", bp["Dense_0"], paths,
-                   f"{bpath}/Dense_0", dense=True)
-        _with_bias(sd, f"{t}.pwconv2", bp["Dense_1"], paths,
-                   f"{bpath}/Dense_1", dense=True)
-        if "gamma" in bp:
-            sd[f"{t}.gamma"] = _t(bp["gamma"])
-        if "GRN_0" in bp:
-            sd[f"{t}.grn.gamma"] = _t(bp["GRN_0"]["gamma"])
-            sd[f"{t}.grn.beta"] = _t(bp["GRN_0"]["beta"])
         k += 1
+
+
+def _convnext_block(sd: dict, t: str, bp: Mapping, paths=None,
+                    bpath: str = ""):
+    """A flax ConvNeXtBlock (Conv_0 the depthwise conv, LayerNorm_0,
+    Dense_0/1, the layer scale `gamma` or GRN_0) -> the port's block `t`."""
+    _with_bias(sd, f"{t}.dwconv", bp["Conv_0"], paths, f"{bpath}/Conv_0")
+    _ln(sd, f"{t}.norm", bp["LayerNorm_0"])
+    _with_bias(sd, f"{t}.pwconv1", bp["Dense_0"], paths, f"{bpath}/Dense_0",
+               dense=True)
+    _with_bias(sd, f"{t}.pwconv2", bp["Dense_1"], paths, f"{bpath}/Dense_1",
+               dense=True)
+    if "gamma" in bp:
+        sd[f"{t}.gamma"] = _t(bp["gamma"])
+    if "GRN_0" in bp:
+        sd[f"{t}.grn.gamma"] = _t(bp["GRN_0"]["gamma"])
+        sd[f"{t}.grn.beta"] = _t(bp["GRN_0"]["beta"])
 
 
 def from_flax_dinov3_pose(variables: Mapping,
@@ -347,8 +359,7 @@ def from_flax_dinov3_pose(variables: Mapping,
     sd: dict = {}
 
     def cb(prefix, p, s, path):
-        _conv(sd, f"{prefix}.conv", p["Conv_0"], paths, f"{path}/Conv_0")
-        _bn(sd, f"{prefix}.bn", p["BatchNorm_0"], s["BatchNorm_0"])
+        _convblock(sd, prefix, p, s, paths, path)
 
     def scope(p, s, path, i, kind="ConvBlock"):
         return p[f"{kind}_{i}"], s[f"{kind}_{i}"], f"{path}/{kind}_{i}"
@@ -465,4 +476,123 @@ def from_flax_bottom_up(variables: Mapping,
     else:
         _heatmap_head(sd, P["HeatmapHead_0"], S["HeatmapHead_0"], paths,
                       "HeatmapHead_0")
+    return sd
+
+
+def _convblock(sd: dict, prefix: str, p: Mapping, s: Mapping, paths=None,
+               path: str = ""):
+    """A flax ConvBlock {Conv_0, BatchNorm_0} -> the port's ConvBlock."""
+    _conv(sd, f"{prefix}.conv", p["Conv_0"], paths, f"{path}/Conv_0")
+    _bn(sd, f"{prefix}.bn", p["BatchNorm_0"], s["BatchNorm_0"])
+
+
+def from_flax_detect_head(variables: Mapping,
+                          paths: dict | None = None) -> dict:
+    """flax DetectHead {params, batch_stats} -> state dict for
+    tpupose_torch's DetectHead. flax numbers in call order, per level l:
+    ConvBlock_{4l, 4l+1} and Conv_{2l} the box branch, ConvBlock_{4l+2,
+    4l+3} and Conv_{2l+1} the class branch. `paths` as in
+    from_flax_simple_baseline."""
+    P, S = variables["params"], variables["batch_stats"]
+    sd: dict = {}
+    lvl = 0
+    while f"Conv_{2 * lvl}" in P:
+        for kind, j0, conv in (("box", 4 * lvl, 2 * lvl),
+                               ("cls", 4 * lvl + 2, 2 * lvl + 1)):
+            for j in range(2):
+                name = f"ConvBlock_{j0 + j}"
+                _convblock(sd, f"{kind}.{lvl}.blocks.{j}", P[name], S[name],
+                           paths, name)
+            _with_bias(sd, f"{kind}.{lvl}.out", P[f"Conv_{conv}"], paths,
+                       f"Conv_{conv}")
+        lvl += 1
+    return sd
+
+
+def _attention(sd: dict, pre: str, p: Mapping):
+    """flax Attention {Dense_0 (qkv), Dense_1 (proj)} -> `pre`qkv/proj."""
+    _dense(sd, f"{pre}qkv", p["Dense_0"])
+    _dense(sd, f"{pre}proj", p["Dense_1"])
+
+
+def _gated_attention(sd: dict, pre: str, p: Mapping):
+    """flax GatedAttention {qkv, gate, proj} -> the same names."""
+    for name in ("qkv", "gate", "proj"):
+        _dense(sd, f"{pre}{name}", p[name])
+
+
+def _fskd_extractor(sd: dict, pre: str, p: Mapping):
+    """flax (CrossModal)FeatureExtractor {DinoViT_0, Dense_0, cls_fuse,
+    patch_proj[, modality_embed]} -> `pre`backbone/fc/cls_fuse/..."""
+    _dino_vit(sd, p["DinoViT_0"], prefix=f"{pre}backbone")
+    _dense(sd, f"{pre}fc", p["Dense_0"])
+    _dense(sd, f"{pre}cls_fuse", p["cls_fuse"])
+    _dense(sd, f"{pre}patch_proj", p["patch_proj"])
+    if "modality_embed" in p:
+        sd[f"{pre}modality_embed"] = _t(p["modality_embed"])
+
+
+def _fskd_fusion(sd: dict, pre: str, p: Mapping):
+    """flax (Adaptive)AttentionFusion {self_attn, gate_attn, strategy |
+    mix} -> the same names under `pre`."""
+    _attention(sd, f"{pre}self_attn.", p["self_attn"])
+    _gated_attention(sd, f"{pre}gate_attn.", p["gate_attn"])
+    if "strategy" in p:
+        _dense(sd, f"{pre}strategy", p["strategy"])
+    else:
+        sd[f"{pre}mix"] = _t(p["mix"])
+
+
+def _proto_head(sd: dict, pre: str, p: Mapping):
+    """flax PrototypicalHead {Dense_0, offset, confidence} (or a
+    MultiPrototypicalHead's `base`) -> `pre`fc/offset/confidence."""
+    if "base" in p:
+        pre, p = f"{pre}base.", p["base"]
+    for name, key in (("fc", "Dense_0"), ("offset", "offset"),
+                      ("confidence", "confidence")):
+        _dense(sd, f"{pre}{name}", p[key])
+
+
+def from_flax_fskd(variables: Mapping) -> dict:
+    """flax FSKD {params} (numpy or jax arrays; also a gradient tree of
+    the same structure) -> state dict for tpupose_torch's FSKD (float32
+    CPU tensors): extractor/DinoViT_0 -> extractor.backbone, extractor's
+    Dense_0 -> extractor.fc, fusion (absent with use_fusion=False), head's
+    Dense_0 -> head.fc."""
+    P = variables["params"]
+    sd: dict = {}
+    _fskd_extractor(sd, "extractor.", P["extractor"])
+    if "fusion" in P:
+        _fskd_fusion(sd, "fusion.", P["fusion"])
+    _proto_head(sd, "head.", P["head"])
+    return sd
+
+
+def from_flax_meta_space(variables: Mapping) -> dict:
+    """flax MetaSpace {params, meta_space} -> state dict for
+    tpupose_torch's MetaSpace: fuse_i -> fusers.i, proj, and the three
+    meta_space buffers (meta_features, feature_sum, feature_count)."""
+    P, M = variables["params"], variables["meta_space"]
+    sd: dict = {}
+    i = 0
+    while f"fuse_{i}" in P:
+        _gated_attention(sd, f"fusers.{i}.", P[f"fuse_{i}"])
+        i += 1
+    _dense(sd, "proj", P["proj"])
+    for name in ("meta_features", "feature_sum", "feature_count"):
+        sd[name] = _t(M[name])
+    return sd
+
+
+def from_flax_fcmae(variables: Mapping) -> dict:
+    """flax FCMAE {params} (also a gradient tree) -> state dict for
+    tpupose_torch's FCMAE: encoder (a ConvNeXtV2 tree), decoder_embed,
+    mask_token (1, 1, 1, D) -> (1, D, 1, 1), decoder_block, pred."""
+    P = variables["params"]
+    sd: dict = {}
+    _convnext(sd, P["encoder"], None, "encoder", prefix="encoder")
+    _with_bias(sd, "decoder_embed", P["decoder_embed"], None, "")
+    sd["mask_token"] = _t(np.asarray(P["mask_token"]).reshape(1, -1, 1, 1))
+    _convnext_block(sd, "decoder_block", P["decoder_block"])
+    _with_bias(sd, "pred", P["pred"], None, "")
     return sd
