@@ -68,7 +68,7 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
      17 keypoints each, and /stats must show coalesced batches; 5b. the
      same through a PoseServer over the int8 predictor;
   7. the training slice: Trainer(cfg, device="cuda") with the config of
-     tpupose/configs/method/simple_baseline.yaml plus
+     tpupose_torch/configs/method/simple_baseline.yaml plus
      data.device_affine=true (SimpleBaseline-R50 256x192, 17 keypoints,
      bf16 autocast over float32 weights, Adam, B=64, synthetic data),
      cut to 3 of its 140 epochs; the warp kernel's count is set to 0
@@ -100,7 +100,7 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
      (over ln 2); CUDA-event times of K8b, the plain backward and SDPA's
      backward alone (autograd.grad on a retained graph);
   10. (after 8) the ViTPose-S training slice: Trainer(cfg, device="cuda")
-     with the config of tpupose/configs/method/vitpose_s.yaml (ViT-S/16,
+     with the config of tpupose_torch/configs/method/vitpose_s.yaml (ViT-S/16,
      classic decoder, 17 keypoints, bf16 autocast over float32 weights,
      AdamW lr 5e-4 wd 0.1, multistep, B=64, synthetic data) cut to 3 of
      its 210 epochs and 1 warmup epoch (of 3: the lr would still be
@@ -137,7 +137,7 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
      hold one entry per kept instance, K1-K4 launching, with its img/s;
   12. (after 11, in a second child process with 13, 13b and 14) HRNet-W32
      training: Trainer(cfg, device="cuda") with the config of
-     tpupose/configs/method/hrnet_w32.yaml (256x192, 17 keypoints, bf16
+     tpupose_torch/configs/method/hrnet_w32.yaml (256x192, 17 keypoints, bf16
      autocast over float32 weights, Adam, multistep, B=64, device affine)
      on synthetic data, cut to 3 of its 210 epochs: the warp kernel's
      count, set to 0 before, equals the train steps after; losses finite
@@ -325,9 +325,8 @@ B = 128
 H, W, K = 256, 192, 17
 ROOT = Path(__file__).resolve().parent
 
-# tpupose/configs/method/simple_baseline.yaml (the graded SimpleBaseline
-# training config, BASELINE.json:8), written out so that the script reads
-# no file of the JAX package
+# tpupose_torch/configs/method/simple_baseline.yaml (the graded SimpleBaseline
+# training config, BASELINE.json:8), written out as a dict
 SIMPLE_BASELINE = {
     "model": {"name": "simple_baseline", "backbone": "resnet50",
               "num_keypoints": 17, "heatmap_size": [64, 48],
@@ -342,7 +341,7 @@ SIMPLE_BASELINE = {
 }
 
 
-# tpupose/configs/method/vitpose_s.yaml (ViTPose-S 256x192: serving in
+# tpupose_torch/configs/method/vitpose_s.yaml (ViTPose-S 256x192: serving in
 # phase 8, training in phase 10), written out for the same reason
 VITPOSE_S = {
     "model": {"name": "vitpose", "backbone": "vit_small",
@@ -1322,7 +1321,7 @@ def coco_phase(results):
     torch.cuda.empty_cache()
 
 
-# tpupose/configs/method/hrnet_w32.yaml and hrnet_w48_384.yaml (the graded
+# tpupose_torch/configs/method/hrnet_w32.yaml and hrnet_w48_384.yaml (the graded
 # HRNet configs, BASELINE.json:9-10), written out as SIMPLE_BASELINE is;
 # the yamls name COCO, the card trains and evaluates on the Builder's
 # synthetic set (and phase 12 on a COCO-format set it writes)
@@ -1986,7 +1985,7 @@ def hrnet_main(out_path: Path) -> int:
     return 0
 
 
-# tpupose/configs/method/dinov3_vitpose.yaml (graded config 5's detector,
+# tpupose_torch/configs/method/dinov3_vitpose.yaml (graded config 5's detector,
 # BASELINE.json:11: DINOv3Pose on a ViT-B/16 at 640x640, 12 heads of 64,
 # neck (192, 384, 768), 4 keypoints, 7 classes), written out as
 # SIMPLE_BASELINE is; stage 2 is SIMPLE_BASELINE
@@ -2336,7 +2335,7 @@ def video_main(out_path: Path) -> int:
     return 0
 
 
-# tpupose/configs/method/dinov3_pose_v8.yaml with the ViT-B/16 backbone of
+# tpupose_torch/configs/method/dinov3_pose_v8.yaml with the ViT-B/16 backbone of
 # DINOV3_VITPOSE (loss v8_pose, so the head's DFL box branch at reg_max 16)
 DINOV3_POSE_V8_VITB = {
     "model": {"name": "dinov3_pose", "backbone": "dinov3_vit_base",
@@ -2739,7 +2738,7 @@ def dino_train_main(out_path: Path) -> int:
     return 0
 
 
-# tpupose/configs/method/simcc_r50.yaml, deep_pose.yaml and
+# tpupose_torch/configs/method/simcc_r50.yaml, deep_pose.yaml and
 # bottom_up_w32.yaml, written out as phase 17 runs them
 SIMCC_R50 = {
     "model": {"name": "simcc", "backbone": "resnet50", "num_keypoints": 17,
@@ -3511,7 +3510,7 @@ def p18_det_eval(results, card: str):
             "kernel": got, "plain": want, "joints": joints, **rate}
 
 
-# tpupose/configs/method/fskd_small.yaml and fcmae.yaml (phase 19), written
+# tpupose_torch/configs/method/fskd_small.yaml and fcmae.yaml (phase 19), written
 # out so that the script reads no file of the JAX package
 FSKD_SMALL = {
     "model": {"name": "fskd", "backbone": "vit_small", "num_keypoints": 17},
@@ -4026,6 +4025,700 @@ def phase18_main(out_path: Path) -> int:
     finally:
         shutil.rmtree(P18_DIR, ignore_errors=True)
     results["affine_warp"]["phase18"] = readings
+    out_path.write_text(json.dumps(results))
+    return 0
+
+
+P20_DIR = ROOT / "build" / "chip_smoke_phase20"
+P20_CFG = ROOT / "tpupose_torch" / "configs" / "method"
+# 20c: the loaded programs against the eager steps on the same inputs.
+# The R50 program runs the same kernels on the same folded weights, its
+# bf16 tail as ATen-level casts; its joints within 1 px of the eager
+# step's, a share of at most P20_PX_SHARE further apart (the route's
+# bound, 0.005 PCK), scores within 1e-3.
+P20_PX_SHARE = 0.005
+# 20d: DP at world size 1 (bf16 autocast, Adam). What the update is
+# computed from is held, not Adam's output (Adam's first step moves every
+# parameter by about lr whatever its gradient's size). Against the same
+# model and arithmetic without DDP (SyncBatchNorm2d in the group, the
+# step without the wrapper): the first step's gradients as they enter the
+# update (all-reduced by DDP) and the BatchNorm running statistics, each
+# by its norm ratio, the whole difference and the worst leaf (of at least
+# 1e-3 of the largest leaf's norm), and the update by its norm, all
+# within P20_DP_SAME_TOL (readings: 1.1e-7, the card's run-to-run
+# floor), and both steps' losses. A zeroed or halved gradient, and a
+# zeroed update, are put to the same check and must be refused. Against
+# the plain trainer without a group (BatchNorm2d's cuDNN arithmetic): the
+# gradient norm, the running statistics and the first loss. The whole
+# difference, the worst leaf and the second loss are reported only: the
+# two BatchNorms' float32 rounding, amplified through 50 bf16 layers at
+# random init, moves the early BatchNorm parameters' small, cancelling
+# gradients by up to 108% (1.5% / 3.2% in float32;
+# scripts/profile_torch_dp.py --grads), and Adam's first step, lr times
+# the sign of each gradient, carries that into the second loss (5e-3).
+P20_DP_SAME_TOL = 1e-4
+P20_DP_NORM_TOL = 1e-2
+P20_DP_STATS_TOL = 2e-2
+P20_DP_LOSS_TOL = 1e-3
+
+
+def _p20_cfg(yaml_name: str, over: dict):
+    """The port's own method yaml with dotted overrides, frozen."""
+    from tpupose_torch.configs import load_config
+
+    cfg = load_config(str(P20_CFG / yaml_name), over)
+    cfg.freeze()
+    return cfg
+
+
+def _p20_steps(tr, n: int):
+    """n train steps of `tr` on its loader's batches (prefetched to the
+    device), each timed on the host clock after a synchronize; returns
+    (losses, step ms)."""
+    losses, ms = [], []
+    batches = iter(tr._prefetched(tr.train_loader))
+    for _ in range(n):
+        db = next(batches)
+        t0 = time.perf_counter()
+        m = tr.train_step(tr.state, db)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"phase 20: losses {losses} not finite")
+    return losses, ms
+
+
+def write_mpii_set(root: Path, n_images: int = 32, per_image: int = 4,
+                   n_valid: int = 64, seed: int = 20):
+    """A seeded MPII-format set under `root`: n JPEGs of 360x480 with
+    `per_image` persons each (the MSRA annotation list: 1-based center
+    and joints, scale = box px / 200, joints_vis), a blob painted at each
+    visible joint; annot/train.json holds every person, annot/valid.json
+    the first n_valid."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    H0, W0 = 360, 480
+    (root / "images").mkdir(parents=True, exist_ok=True)
+    (root / "annot").mkdir(exist_ok=True)
+    g = np.exp(-np.arange(-8, 9, dtype=np.float32) ** 2 / (2 * 4.0 ** 2))
+    blob = 200.0 * g[:, None] * g[None, :]
+    anns = []
+    for i in range(n_images):
+        img = rng.uniform(20, 60, (H0, W0, 3)).astype(np.float32)
+        name = f"{i:09d}.jpg"
+        for _ in range(per_image):
+            s = rng.uniform(0.5, 1.0)
+            cx, cy = rng.uniform(100, W0 - 100), rng.uniform(90, H0 - 90)
+            j = np.stack([cx + rng.normal(0, 30 * s, 16),
+                          cy + rng.normal(0, 45 * s, 16)], 1)
+            j = np.clip(j, 8, [W0 - 9, H0 - 9])
+            vis = (rng.uniform(size=16) > 0.15).astype(int)
+            for k in np.flatnonzero(vis):
+                x, y = int(j[k, 0]), int(j[k, 1])
+                img[y - 8:y + 9, x - 8:x + 9, k % 3] += blob
+            anns.append({"image": name, "center": [cx + 1.0, cy + 1.0],
+                         "scale": s, "joints": (j + 1.0).tolist(),
+                         "joints_vis": vis.tolist()})
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+            root / "images" / name, quality=90)
+    for split, part in (("train", anns), ("valid", anns[:n_valid])):
+        (root / "annot" / f"{split}.json").write_text(json.dumps(part))
+    return len(anns)
+
+
+def p20_mpii(results, card: str):
+    """20a: simple_baseline_mpii.yaml (SimpleBaseline-R50 256x256, 16
+    joints, B=64) on a seeded MPII-format set: one epoch of 2 steps with
+    data.device_affine (exactly 2 K7 launches, no other kernel), then
+    Trainer.evaluate with flip, DARK and PCKh (K4 once an eval batch; the
+    256x256 input takes the model's own forward, no K1-K3)."""
+    root = P20_DIR / "mpii"
+    n = write_mpii_set(root, n_images=32, per_image=4, n_valid=64)
+    from tpupose_torch.engine.trainer import Trainer
+
+    tr = Trainer(_p20_cfg("simple_baseline_mpii.yaml", {
+        "data.root": str(root), "data.device_affine": "true",
+        "train.epochs": "1", "train.output_dir": str(P20_DIR / "mpii_run"),
+        "train.log_interval": "1"}), device="cuda")
+    if tr.steps_per_epoch != 2 or len(tr.train_ds) != n:
+        raise AssertionError(f"phase 20a: {len(tr.train_ds)} persons, "
+                             f"{tr.steps_per_epoch} steps an epoch")
+    _p19_reset()
+    t0 = time.perf_counter()
+    loss = tr.iter_one_epoch(0)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = _p19_counts()
+    _p19_check("20a train", counts, {"affine_warp_full": 2})
+    _p19_reset()
+    t0 = time.perf_counter()
+    out = tr.evaluate()
+    eval_s = time.perf_counter() - t0
+    eval_counts = _p19_counts()
+    n_batches = -(-len(tr.valid_ds) // tr.cfg.eval.batch_size)
+    _p19_check("20a evaluate", eval_counts, {"dark_decode": n_batches})
+    if not np.isfinite(loss) or not {"pckh", "pck", "mpjpe"} <= set(out) \
+            or not all(np.isfinite(v) for v in out.values()):
+        raise AssertionError(f"phase 20a: loss {loss}, metrics {out}")
+    log(f"phase 20a MPII R50 256x256 on {card}: {n} persons, 2 steps "
+        f"{train_s:.2f} s (loss {loss:.5f}, {tr.img_per_s:.1f} img/s), "
+        f"launches {counts}; evaluate {len(tr.valid_ds)} persons in "
+        f"{n_batches} batch(es) {eval_s:.2f} s, launches {eval_counts}, "
+        + " ".join(f"{k}={v:.4f}" for k, v in out.items()))
+    results["affine_warp"]["launches_phase20_mpii"] = counts["affine_warp_full"]
+    results["dark_decode"]["launches_phase20_mpii_eval"] = \
+        eval_counts["dark_decode"]
+    return {"train_s": train_s, "eval_s": eval_s, "loss": loss,
+            "img_per_s": tr.img_per_s, "metrics": out,
+            "k7_launches": counts["affine_warp_full"],
+            "k4_launches": eval_counts["dark_decode"],
+            "eval_batches": n_batches}
+
+
+def write_coco_keypoints(root: Path, n_images: int = 32, K: int = 4,
+                         seed: int = 21) -> Path:
+    """A seeded COCO keypoint JSON of n JPEGs (480x640, 1-3 instances of
+    K keypoints each, categories 1-7, a crowd among them) under
+    root/raw; returns the JSON's path."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    H0, W0 = 480, 640
+    (root / "raw").mkdir(parents=True, exist_ok=True)
+    images, anns = [], []
+    for i in range(n_images):
+        img = rng.uniform(20, 90, (H0, W0, 3)).astype(np.uint8)
+        name = f"{i:06d}.jpg"
+        Image.fromarray(img).save(root / "raw" / name, quality=90)
+        images.append({"id": i, "file_name": name, "width": W0,
+                       "height": H0})
+        for _ in range(1 + i % 3):
+            w, h = rng.uniform(60, 200), rng.uniform(60, 200)
+            x, y = rng.uniform(0, W0 - w), rng.uniform(0, H0 - h)
+            kp = np.stack([rng.uniform(x, x + w, K), rng.uniform(y, y + h, K),
+                           rng.choice([1, 2], K)], 1)
+            anns.append({"id": len(anns), "image_id": i,
+                         "category_id": int(rng.randint(1, 8)),
+                         "bbox": [x, y, w, h],
+                         "keypoints": kp.reshape(-1).tolist(),
+                         "num_keypoints": K, "area": w * h,
+                         "iscrowd": int(len(anns) == 7)})
+    path = root / "keypoints.json"
+    path.write_text(json.dumps({"images": images, "annotations": anns}))
+    return path
+
+
+def p20_yolo(results, card: str):
+    """20b: cli.tools convert-coco of a seeded COCO keypoint JSON into
+    YOLO-pose labels, check-labels (no bad file), resize to 640 and
+    check-data on them; then DINOv3Pose on dinov3_vitpose.yaml (ViT-B/16
+    640x640, B=16) with data.name=yolo_pose, unfrozen, from a seeded
+    DINOv3 ViT-B checkpoint the phase writes (model.pretrained): the
+    backbone equal to the file, then 2 steps, exactly 24 K8 and 24 K8b
+    launches and no other kernel."""
+    from tpupose_torch.cli import tools
+    from tpupose_torch.engine.builder import Builder
+    from tpupose_torch.engine.trainer import Trainer
+
+    root = P20_DIR / "yolo"
+    t0 = time.perf_counter()
+    ann = write_coco_keypoints(root)
+    train = root / "train"
+    tools.main(["convert-coco", "--ann", str(ann), "--out",
+                str(train / "labels")])
+    bad = tools.check_labels(str(train / "labels"), 4)
+    tools.main(["resize", "--images", str(root / "raw"), "--out",
+                str(train / "images"), "--size", "640", "--workers", "8"])
+    tools.main(["check-data", "--images", str(train / "images"), "--labels",
+                str(train / "labels"), "--out", str(root / "viz"),
+                "--nkpts", "4", "--limit", "4"])
+    tools_s = time.perf_counter() - t0
+    n_labels = len(list((train / "labels").glob("*.txt")))
+    if bad or n_labels != 32 or len(list((root / "viz").iterdir())) != 4:
+        raise AssertionError(f"phase 20b tools: {len(bad)} bad label files, "
+                             f"{n_labels} label files")
+    over = {"data.name": "yolo_pose", "data.train_dir": str(train),
+            "data.valid_dir": str(train), "model.freeze_backbone": "false",
+            "train.epochs": "1", "train.log_interval": "1",
+            "train.output_dir": str(P20_DIR / "yolo_run")}
+    src = Builder(_p20_cfg("dinov3_vitpose.yaml", {**over, "train.seed": "20"}),
+                  "cuda").model().backbone
+    sd = {k: v.detach().cpu() for k, v in src.state_dict().items()}
+    del src
+    pth = root / "dinov3_vitb16.pth"
+    torch.save(sd, pth)
+    tr = Trainer(_p20_cfg("dinov3_vitpose.yaml", {
+        **over, "model.pretrained": str(pth)}), device="cuda")
+    own = tr.model.backbone.state_dict()
+    differ = [k for k, v in sd.items() if not torch.equal(own[k].cpu(), v)]
+    if differ or tr.steps_per_epoch != 2:
+        raise AssertionError(f"phase 20b: {len(differ)} backbone tensors "
+                             f"differ from the checkpoint, "
+                             f"{tr.steps_per_epoch} steps an epoch")
+    _p19_reset()
+    losses, ms = _p20_steps(tr, 2)
+    counts = _p19_counts()
+    _p19_check("20b train", counts, {"flash_attention": 24,
+                                    "flash_attention_bwd": 24})
+    log(f"phase 20b YOLO-format data on {card}: convert-coco / check-labels "
+        f"/ resize / check-data {tools_s:.2f} s ({n_labels} label files); "
+        f"DINOv3Pose ViT-B/16 640 unfrozen from a {len(sd)}-tensor "
+        f"checkpoint: 2 steps {[round(v, 1) for v in ms]} ms, losses "
+        f"{[round(v, 5) for v in losses]}, launches {counts}")
+    results["flash_attention"]["launches_phase20_yolo"] = \
+        counts["flash_attention"]
+    results["flash_attention_bwd"]["launches_phase20_yolo"] = \
+        counts["flash_attention_bwd"]
+    return {"tools_s": tools_s, "step_ms": ms, "losses": losses,
+            "k8_launches": counts["flash_attention"],
+            "k8b_launches": counts["flash_attention_bwd"]}
+
+
+def _op_host_us(fns: dict, n=200):
+    """Host microseconds a call of each of `fns` (name -> a call with its
+    arguments bound) takes, each the median of 4 rounds of n calls, the
+    rounds of the names interleaved (forward, then backward order) and
+    the device drained between rounds."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {k: [] for k in fns}
+    order = list(fns)
+    for names in (order, order[::-1], order, order[::-1]):
+        for k in names:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fns[k]()
+            times[k].append(1e6 * (time.perf_counter() - t0) / n)
+            torch.cuda.synchronize()
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def p20_op_overhead(card: str):
+    """The host cost of the torch.library dispatch: each of the five
+    kernels called through its op (what a traced program runs), through
+    its wrapper (an eager call: the op's body straight, _build.
+    op_or_body) and as the body itself, at a small shape (host-bound:
+    B = 1, the R50's 256x192 crop; K8 at (1, 197, 6, 64)); and what the
+    op and the wrapper add to an R50 flip predict (2 K1 + 2 K2 + 2 K3 +
+    1 K4 calls) and to an FSKD episode (24 K8 calls)."""
+    from tpupose_torch.engine.builder import Builder
+    from tpupose_torch.ops import (cuda_attention, cuda_bridge, cuda_decode,
+                                   cuda_layer1, cuda_stem)
+
+    from tpupose_torch.ops.cuda_stem import fold_fast_r50
+
+    fw = fold_fast_r50(Builder(_p20_cfg("simple_baseline.yaml", {}),
+                               "cuda").model().eval())
+    g = torch.Generator(device="cuda").manual_seed(20)
+    x0 = torch.randn((1, 256, 192, 3), device="cuda", generator=g,
+                     dtype=torch.bfloat16)
+    x1 = torch.randn((1, 64, 48, 64), device="cuda", generator=g,
+                     dtype=torch.bfloat16)
+    x2 = torch.randn((1, 64, 48, 256), device="cuda", generator=g,
+                     dtype=torch.bfloat16)
+    hm = torch.rand((1, 17, 64, 48), device="cuda", generator=g)
+    q, k, v = (torch.randn((1, 197, 6, 64), device="cuda", generator=g,
+                           dtype=torch.bfloat16) for _ in range(3))
+    br = fw["bridge"]
+    l1 = cuda_layer1.flatten_layer1(fw["layer1"])
+    b_args = (x2, *(br[n] for n in ("w1", "b1", "w2", "b2", "w3", "b3",
+                                    "wds")))
+    st = (x0, fw["stem"]["w"], fw["stem"]["bias"])
+    calls = {
+        "stem_pool": (lambda: cuda_stem.stem_pool_op(*st),
+                      lambda: cuda_stem.stem_pool(x0, fw["stem"]),
+                      lambda: cuda_stem.stem_pool_impl(*st)),
+        "layer1": (lambda: cuda_layer1.layer1_op(x1, l1),
+                   lambda: cuda_layer1.layer1(x1, fw["layer1"]),
+                   lambda: cuda_layer1.layer1_impl(x1, l1)),
+        "bridge": (lambda: cuda_bridge.bridge_op(*b_args),
+                   lambda: cuda_bridge.bridge(x2, br),
+                   lambda: cuda_bridge.bridge_impl(*b_args)),
+        "dark_decode": (lambda: cuda_decode.dark_decode_op(hm, 11, 2.0),
+                        lambda: cuda_decode.dark_decode(hm, 11, 2.0),
+                        lambda: cuda_decode.dark_decode_impl(hm, 11, 2.0)),
+        "flash_attention": (
+            lambda: cuda_attention.flash_attention_op(q, k, v, 0.125, False),
+            lambda: cuda_attention.flash_attention(q, k, v, 0.125),
+            lambda: cuda_attention.flash_attention_impl(q, k, v, 0.125,
+                                                        False)),
+    }
+    us = {}
+    for name, (op, wrapper, body) in calls.items():
+        us[name] = _op_host_us({"op": op, "wrapper": wrapper, "body": body})
+    added = {w: {name: r[w] - r["body"] for name, r in us.items()}
+             for w in ("op", "wrapper")}
+
+    def per(a):
+        return {"r50_flip_predict": 2 * (a["stem_pool"] + a["layer1"]
+                                         + a["bridge"]) + a["dark_decode"],
+                "fskd_episode": 24 * a["flash_attention"]}
+
+    # the R50 flip predict end to end (cli.serve's predictor, one crop),
+    # its kernels called through their ops (as a traced program does)
+    # and through their wrappers (eager, the default)
+    from tpupose_torch.cli.serve import build_predictor
+    from tpupose_torch.ops import _build
+
+    pred = build_predictor(_p20_cfg("simple_baseline.yaml", {}), "",
+                           device="cuda")
+    crop = np.random.RandomState(20).randint(
+        0, 256, (1, 256, 192, 3)).astype(np.uint8)
+    eager = _build.op_or_body
+
+    def through_ops():
+        _build.op_or_body = lambda op, body: op
+        try:
+            pred(crop)
+        finally:
+            _build.op_or_body = eager
+
+    predict_us = _op_host_us({"through_ops": through_ops,
+                              "eager": lambda: pred(crop)}, n=50)
+    out = {"host_us": us, "added_us_op": per(added["op"]),
+           "added_us_wrapper": per(added["wrapper"]),
+           "r50_flip_predict_us": predict_us}
+    log(f"phase 20c op dispatch on {card}: host us a call op / wrapper / "
+        "body " + json.dumps({k: [round(r[w], 2) for w in
+                                  ("op", "wrapper", "body")]
+                              for k, r in us.items()})
+        + "; added us (R50 flip predict, FSKD episode): through the op "
+        + json.dumps(out["added_us_op"]) + ", eager wrapper "
+        + json.dumps(out["added_us_wrapper"]) + "; one R50 flip predict "
+        "(1 crop) us " + json.dumps(predict_us))
+    return out
+
+
+def p20_export(results, card: str):
+    """20c: cli.export of the heatmap program (simple_baseline.yaml: R50
+    256x192, float32 masters under bf16 autocast, flip and DARK, batch
+    32, format=both) and of the yolo program (dinov3_vitpose.yaml, ViT-B
+    640, batch 8, conf 0.005), both traced on the card; a fresh process
+    loads them, runs each twice on seeded inputs (exactly 2/6/2/1 K1-K4
+    launches a heatmap call, 12 K8 a yolo call), lists the graphs'
+    tpupose_torch:: ops and returns the outputs, held here against
+    TopDownEvaluator.step and YoloPosePredictor._infer of the same seeded
+    models on the same inputs."""
+    from tpupose_torch.cli.export import main as export_main
+    from tpupose_torch.engine.builder import Builder
+    from tpupose_torch.engine.evaluator import TopDownEvaluator
+    from tpupose_torch.engine.predictor import YoloPosePredictor
+
+    exp = P20_DIR / "export"
+    t0 = time.perf_counter()
+    export_main(["--cfg", str(P20_CFG / "simple_baseline.yaml"), "--device",
+                 "cuda", f"out={exp / 'r50'}", "format=both", "batch=32"])
+    hm_export_s = time.perf_counter() - t0
+    yolo_over = {"eval.conf_threshold": "0.005"}
+    t0 = time.perf_counter()
+    export_main(["--cfg", str(P20_CFG / "dinov3_vitpose.yaml"), "--device",
+                 "cuda", "eval.conf_threshold=0.005", f"out={exp / 'yolo'}",
+                 "format=pt2", "batch=8"])
+    yolo_export_s = time.perf_counter() - t0
+    g = torch.Generator().manual_seed(20)
+    crops = torch.randint(0, 256, (32, 256, 192, 3), generator=g,
+                          dtype=torch.uint8)
+    centers = torch.rand((32, 2), generator=g) * 100 + 100
+    scales = torch.rand((32, 2), generator=g) * 100 + torch.tensor([150.,
+                                                                    200.])
+    frames = torch.randint(0, 256, (8, 640, 640, 3), generator=g,
+                           dtype=torch.uint8)
+    torch.save({"crops": crops, "centers": centers, "scales": scales,
+                "frames": frames}, exp / "inputs.pt")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                    "--phase20-load", str(exp)], check=True, timeout=300)
+    fresh_s = time.perf_counter() - t0
+    got = torch.load(exp / "loaded.pt", weights_only=False)
+
+    cfg = _p20_cfg("simple_baseline.yaml", {})
+    ev = TopDownEvaluator(Builder(cfg, "cuda").model(),
+                          tuple(cfg.model.heatmap_size),
+                          decode=cfg.eval.decode,
+                          flip_test=cfg.eval.flip_test, device="cuda")
+    wc, ws = (t.cpu() for t in ev.step(crops.cuda(), centers.cuda(),
+                                       scales.cuda()))
+    gc, gs = got["heatmap"]
+    px = (gc - wc).norm(dim=-1)
+    far = float((px > 1.0).float().mean())
+    s_err = float((gs - ws).abs().max())
+    ycfg = _p20_cfg("dinov3_vitpose.yaml", yolo_over)
+    pred = YoloPosePredictor(
+        Builder(ycfg, "cuda").model(), num_classes=ycfg.model.num_classes,
+        num_keypoints=ycfg.model.num_keypoints,
+        conf_threshold=ycfg.eval.conf_threshold,
+        iou_threshold=ycfg.eval.iou_threshold,
+        max_detections=ycfg.eval.max_detections, device="cuda")
+    want = [t.cpu() for t in pred._infer(frames.cuda())]
+    det = got["yolo"]
+    # per image: the detection counts within 2% (at least 1), the ten
+    # best scores within 1e-2 and their boxes within 1 px (the ATen-level
+    # graph may round a float32 op apart from the eager one, which can move
+    # a candidate across the confidence threshold or swap two near ties
+    # further down the list)
+    n_got, n_want = det[4].sum(1), want[4].sum(1)
+    count_ok = bool(((n_got - n_want).abs()
+                     <= torch.clamp(0.02 * n_want, min=1)).all())
+    score_err = float((det[1][:, :10] - want[1][:, :10]).abs().max())
+    box_err = float((det[0][:, :10] - want[0][:, :10]).abs().max())
+    want_hm = {"tpupose_torch.stem_pool.default": 2,
+               "tpupose_torch.layer1.default": 2,
+               "tpupose_torch.bridge.default": 2,
+               "tpupose_torch.dark_decode.default": 1}
+    hm_ops = {k: got["heatmap_ops"].count(k) for k in want_hm}
+    ok = (far <= P20_PX_SHARE and s_err <= 1e-3 and hm_ops == want_hm
+          and got["yolo_ops"].count("tpupose_torch.flash_attention.default")
+          == 12 and count_ok and bool(det[4].any()) and score_err <= 1e-2
+          and box_err <= 1.0
+          and all(c == {"stem_pool": 2, "layer1": 6, "bridge": 2,
+                        "dark_decode": 1} for c in got["heatmap_launches"])
+          and all(c == {"flash_attention": 12} for c in got["yolo_launches"]))
+    log(f"phase 20c export on {card}: heatmap program {hm_export_s:.1f} s "
+        f"to export, yolo {yolo_export_s:.1f} s; the fresh process "
+        f"{fresh_s:.1f} s (load {got['load_s']}); heatmap ops {hm_ops}, "
+        f"launches a call {got['heatmap_launches']}, joints > 1 px from "
+        f"the eager step {far:.4f} (max {float(px.max()):.3g} px), scores "
+        f"{s_err:.3g}; yolo K8 ops "
+        f"{got['yolo_ops'].count('tpupose_torch.flash_attention.default')}, "
+        f"launches {got['yolo_launches']}, detections {n_got.tolist()} "
+        f"vs eager {n_want.tolist()}, top-10 scores {score_err:.3g} and "
+        f"boxes {box_err:.3g} px; call ms "
+        f"{got['call_ms']}")
+    if not ok:
+        raise AssertionError("phase 20c: a loaded program is off its eager "
+                             "step or its launches")
+    results["stem_pool"]["launches_phase20_program"] = \
+        got["heatmap_launches"][0]["stem_pool"]
+    results["layer1"]["launches_phase20_program"] = \
+        got["heatmap_launches"][0]["layer1"]
+    results["bridge"]["launches_phase20_program"] = \
+        got["heatmap_launches"][0]["bridge"]
+    results["dark_decode"]["launches_phase20_program"] = \
+        got["heatmap_launches"][0]["dark_decode"]
+    results["flash_attention"]["launches_phase20_program"] = \
+        got["yolo_launches"][0]["flash_attention"]
+    return {"heatmap_export_s": hm_export_s, "yolo_export_s": yolo_export_s,
+            "fresh_process_s": fresh_s, "load_s": got["load_s"],
+            "call_ms": got["call_ms"], "px_far_share": far,
+            "px_max": float(px.max()), "score_err": s_err,
+            "yolo_box_err": box_err, "yolo_score_err": score_err,
+            "heatmap_ops": got["heatmap_ops"],
+            "yolo_detections": int(det[4].sum())}
+
+
+def phase20_load_main(exp: Path) -> int:
+    """20c's fresh process: load the two exported programs, run each twice
+    on the saved inputs with the launch counters reset before each call,
+    and save outputs, op lists, launches, load seconds and call ms."""
+    from tpupose_torch.engine.exporter import load_program, program_ops
+
+    inp = torch.load(exp / "inputs.pt")
+    out = {"load_s": {}, "call_ms": {}}
+    for name, args in (("heatmap", (inp["crops"], inp["centers"],
+                                    inp["scales"])),
+                       ("yolo", (inp["frames"],))):
+        t0 = time.perf_counter()
+        prog = load_program(str(exp / ("r50.pt2" if name == "heatmap"
+                                       else "yolo.pt2")))
+        out["load_s"][name] = round(time.perf_counter() - t0, 2)
+        out[f"{name}_ops"] = program_ops(prog)
+        args = [a.cuda() for a in args]
+        launches, ms = [], []
+        for _ in range(2):
+            _p19_reset()
+            t0 = time.perf_counter()
+            res = prog(*args)
+            torch.cuda.synchronize()
+            ms.append(round(1e3 * (time.perf_counter() - t0), 1))
+            launches.append({k: v for k, v in _p19_counts().items() if v})
+        out[name] = [t.cpu() for t in res]
+        out[f"{name}_launches"] = launches
+        out["call_ms"][name] = ms
+        log(f"phase 20c fresh process: {name} program ops "
+            f"{sorted(set(out[f'{name}_ops']))}")
+    torch.save(out, exp / "loaded.pt")
+    return 0
+
+
+def _p20_first_update(tr):
+    """Wrap `tr`'s optimizer so that its first step() records what the
+    update is computed from and what it did: each parameter's gradient
+    (float32; DDP has all-reduced it by then), each BatchNorm running
+    statistic (that step's forward has just updated them) and each
+    parameter's change. Returns a dict the record is put into."""
+    opt, seen = tr.state.optimizer, {}
+    step = opt.step
+
+    def first_step(*args, **kwargs):
+        if seen:
+            return step(*args, **kwargs)
+        m = tr.model
+        before = [p.detach().float().clone() for p in m.parameters()]
+        seen["grads"] = [torch.zeros(p.shape, device=p.device)
+                         if p.grad is None else p.grad.detach().float().clone()
+                         for p in m.parameters()]
+        seen["stats"] = [b.detach().float().clone()
+                         for n, b in m.named_buffers()
+                         if n.endswith(("running_mean", "running_var"))]
+        out = step(*args, **kwargs)
+        seen["update"] = [p.detach().float() - b
+                          for p, b in zip(m.parameters(), before)]
+        return out
+
+    opt.step = first_step
+    return seen
+
+
+def _p20_grad_gap(got, want) -> dict:
+    """The tensors `got` against `want` (lists in the same order):
+    |norm ratio - 1|, the whole difference's norm over want's, and the
+    worst leaf's difference over its own norm among the leaves of at
+    least 1e-3 of the largest leaf's norm."""
+    gn = torch.stack([g.norm() for g in got])
+    wn = torch.stack([w.norm() for w in want])
+    dn = torch.stack([(g - w).norm() for g, w in zip(got, want)])
+    keep = wn >= 1e-3 * wn.max()
+    return {"norm": abs(float(gn.norm() / wn.norm()) - 1.0),
+            "whole": float(dn.norm() / wn.norm()),
+            "leaf": float((dn[keep] / wn[keep]).max())}
+
+
+def p20_dp(results, card: str):
+    """20d: data parallelism at world size 1 (the card has one GPU): the
+    R50 256x192 trainer at B=64 with device affine (no warmup), 2 steps
+    without a process group, then in an NCCL group over a FileStore the
+    same 2 steps under DistributedDataParallel with SyncBatchNorm2d
+    (exactly 2 K7 launches) and 2 steps of the same model without DDP;
+    the checks of P20_DP_* on the first step's gradients, update and
+    statistics, the check refusing a zeroed and a halved gradient and a
+    zeroed update; each step's ms."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from tpupose_torch.engine.trainer import Trainer
+
+    # no warmup: its schedule gives the first update lr 0, nothing to hold
+    over = {"data.device_affine": "true", "train.epochs": "1",
+            "train.warmup_epochs": "0",
+            "train.output_dir": str(P20_DIR / "dp_run")}
+    plain = Trainer(_p20_cfg("simple_baseline.yaml", over), device="cuda")
+    rec_p = _p20_first_update(plain)
+    want, plain_ms = _p20_steps(plain, 2)
+    del plain
+    torch.cuda.empty_cache()
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(P20_DIR / "nccl_store"), 1),
+        rank=0, world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        tr = Trainer(_p20_cfg("simple_baseline.yaml", over), device="cuda")
+        bn = type(tr.model.backbone.bn1).__name__
+        if tr.state.ddp is None or bn != "SyncBatchNorm2d":
+            raise AssertionError(f"phase 20d: DDP {tr.state.ddp}, {bn}")
+        rec_d = _p20_first_update(tr)
+        _p19_reset()
+        got, dp_ms = _p20_steps(tr, 2)
+        counts = _p19_counts()
+        _p19_check("20d", counts, {"affine_warp_full": 2})
+        del tr
+        torch.cuda.empty_cache()
+        ref = Trainer(_p20_cfg("simple_baseline.yaml", over), device="cuda")
+        ref.state.ddp = None
+        rec_s = _p20_first_update(ref)
+        same_loss, _ = _p20_steps(ref, 2)
+        del ref
+    finally:
+        dist.destroy_process_group()
+    same = {k: _p20_grad_gap(rec_d[k], rec_s[k])
+            for k in ("grads", "update", "stats")}
+    refused = {"grads x0": _p20_grad_gap([0 * g for g in rec_d["grads"]],
+                                         rec_s["grads"]),
+               "grads x0.5": _p20_grad_gap(
+                   [0.5 * g for g in rec_d["grads"]], rec_s["grads"]),
+               "update x0": _p20_grad_gap([0 * u for u in rec_d["update"]],
+                                          rec_s["update"])}
+    vs_plain = {k: _p20_grad_gap(rec_d[k], rec_p[k])
+                for k in ("grads", "stats")}
+    rel = [abs(g / w - 1.0) for g, w in zip(got, want)]
+    same_rel = [abs(g / w - 1.0) for g, w in zip(got, same_loss)]
+    log(f"phase 20d DP at world size 1 (NCCL, FileStore) on {card}: DDP + "
+        f"SyncBatchNorm2d, 2 steps {[round(v, 1) for v in dp_ms]} ms "
+        f"against {[round(v, 1) for v in plain_ms]} ms without DP; first "
+        f"step against the same model without DDP {json.dumps(same)}, "
+        f"losses rel {[f'{v:.2g}' for v in same_rel]} (bound "
+        f"{P20_DP_SAME_TOL}; refused: {json.dumps(refused)}); "
+        f"against the plain trainer {json.dumps(vs_plain)} (bounds: "
+        f"grads norm {P20_DP_NORM_TOL}, stats {P20_DP_STATS_TOL}), losses "
+        f"{[round(v, 6) for v in got]} vs {[round(v, 6) for v in want]} "
+        f"(rel {[f'{v:.2g}' for v in rel]}, bound {P20_DP_LOSS_TOL}, the "
+        f"second reported only); "
+        f"launches {counts}")
+    def within(values, tol):         # a NaN is never within
+        return all(v <= tol for v in values)
+
+    for k, r in refused.items():
+        if within(r.values(), P20_DP_SAME_TOL):
+            raise AssertionError(f"phase 20d: the check passes the DP "
+                                 f"step's {k}")
+    # the update by its norm: Adam's first step is lr x sign(g), and an
+    # element whose cancelling sum is ~0 may flip its sign between runs
+    held = [*same["grads"].values(), *same["stats"].values(),
+            same["update"]["norm"], *same_rel]
+    if not (within(held, P20_DP_SAME_TOL)
+            and within([vs_plain["grads"]["norm"]], P20_DP_NORM_TOL)
+            and within(vs_plain["stats"].values(), P20_DP_STATS_TOL)
+            and within(rel[:1], P20_DP_LOSS_TOL)):
+        raise AssertionError("phase 20d: the DP steps are off the plain "
+                             "ones")
+    results["affine_warp"]["launches_phase20_dp"] = counts["affine_warp_full"]
+    return {"dp_step_ms": dp_ms, "plain_step_ms": plain_ms, "dp_loss": got,
+            "plain_loss": want, "loss_rel": rel, "vs_same_model": same,
+            "same_model_loss_rel": same_rel,
+            "refused": refused, "vs_plain": vs_plain,
+            "k7_launches": counts["affine_warp_full"]}
+
+
+def phase20_main(out_path: Path) -> int:
+    """Phase 20 on its own (a child process main() starts, as phase
+    18's): MPII (20a), YOLO-format data with the data tools (20b),
+    program export with the kernels as torch.library ops (20c) and data
+    parallelism at world size 1 (20d); their rows of the kernels JSON go
+    to `out_path`."""
+    from tpupose_torch.ops import _build
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout
+    card = smi.strip().splitlines()[0]
+    log(f"phase 20 card: {card}")
+    t_phase = time.perf_counter()
+    _build.build_all()
+    results = {k: {} for k in ("stem_pool", "layer1", "bridge",
+                               "dark_decode", "affine_warp",
+                               "flash_attention", "flash_attention_bwd")}
+    shutil.rmtree(P20_DIR, ignore_errors=True)
+    P20_DIR.mkdir(parents=True)
+    readings = {}
+    try:
+        for name, fn in (("mpii", p20_mpii), ("yolo", p20_yolo),
+                         ("export", p20_export), ("dp", p20_dp)):
+            t0 = time.perf_counter()
+            readings[name] = fn(results, card)
+            readings[name]["seconds"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+        readings["op_dispatch"] = p20_op_overhead(card)
+    finally:
+        shutil.rmtree(P20_DIR, ignore_errors=True)
+    readings["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"phase 20 seconds: {readings['phase_seconds']:.1f} ("
+        + ", ".join(f"{k} {v['seconds']:.1f}" for k, v in readings.items()
+                    if isinstance(v, dict) and "seconds" in v) + ")")
+    results["stem_pool"]["phase20"] = readings
     out_path.write_text(json.dumps(results))
     return 0
 
@@ -4812,6 +5505,17 @@ def main() -> int:
         results[kernel].update(row)
     phase18.unlink()
 
+    # -- phase 20: MPII and YOLO-format data with the data tools, program
+    # export with K1-K4 and K8 as torch.library ops (a fresh process loads
+    # the programs), data parallelism at world size 1; in a child process,
+    # as phases 11-18 -----------------------------------------------------
+    phase20 = ROOT / "build" / "chip_smoke_phase20.json"
+    subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                    "--phase20", str(phase20)], check=True, timeout=400)
+    for kernel, row in json.loads(phase20.read_text()).items():
+        results[kernel].update(row)
+    phase20.unlink()
+
     # -- phase 9: device times, measured last so that no profiler session
     # precedes the timing of any other phase -----------------------------------
     k8_row = results["flash_attention"]
@@ -4931,12 +5635,14 @@ if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--phase12":
         sys.exit(hrnet_main(Path(sys.argv[2])))
     if len(sys.argv) == 3 and sys.argv[1] in ("--phase15", "--phase16",
-                                              "--phase17", "--phase18"):
+                                              "--phase17", "--phase18",
+                                              "--phase20", "--phase20-load"):
         if not torch.cuda.is_available():
             print("chip_smoke: CUDA is not available", file=sys.stderr)
             sys.exit(2)
         sys.exit({"--phase15": video_main, "--phase16": dino_train_main,
                   "--phase17": families_main,
-                  "--phase18": phase18_main}[sys.argv[1]](
+                  "--phase18": phase18_main, "--phase20": phase20_main,
+                  "--phase20-load": phase20_load_main}[sys.argv[1]](
                       Path(sys.argv[2])))
     sys.exit(main())

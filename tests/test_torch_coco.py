@@ -227,8 +227,8 @@ def test_loader_takes_get_batch_and_matches_jax(coco_root, monkeypatch):
 
 def test_builder_coco_branch(coco_root):
     """data.name=coco builds the port's CocoTopDownDataset with the
-    config's knobs, and the other datasets keep raising with their
-    Queue A item."""
+    config's knobs; a name no dataset has raises (the mpii and yolo_pose
+    branches are held in tests/test_torch_mpii_yolo.py)."""
     from tpupose_torch.configs import default_config
     from tpupose_torch.engine.builder import Builder
 
@@ -251,7 +251,6 @@ def test_builder_coco_branch(coco_root):
     batch = next(iter(loader))
     assert batch["images"].shape == (4, 128, 96, 3)
     assert batch["pad_mask"].all()
-    for name, item in (("mpii", "item 12"), ("yolo_pose", "item 12")):
-        cfg.data.name = name
-        with pytest.raises(ValueError, match=item):
-            Builder(cfg, device="cpu").dataset("train")
+    cfg.data.name = "cocoo"
+    with pytest.raises(ValueError, match="unknown dataset 'cocoo'"):
+        Builder(cfg, device="cpu").dataset("train")

@@ -1413,3 +1413,134 @@ def test_fcmae_step_launches_no_kernel(gpu):
     loss.backward()
     assert [w.launches for w in wrappers] == before
     assert torch.isfinite(loss) and out["pred"].dtype == torch.float32
+
+
+# -- the kernels as torch.library ops, and an exported program --------------------
+
+def test_ops_equal_their_direct_kernel_calls(card):
+    """Each op (K1-K4, K8's forward) on card tensors equals its body's
+    direct ctypes call bit for bit, and each launch counts once, through
+    the op or directly."""
+    from tpupose_torch.ops import (cuda_attention, cuda_bridge, cuda_decode,
+                                   cuda_layer1, cuda_stem)
+
+    fw = cuda_stem.fold_fast_r50(card)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    x0 = torch.randn((2, 256, 192, 3), device="cuda", generator=g) \
+        .to(torch.bfloat16)
+    x1 = torch.randn((2, 64, 48, 64), device="cuda", generator=g) \
+        .to(torch.bfloat16)
+    x2 = torch.randn((2, 64, 48, 256), device="cuda", generator=g) \
+        .to(torch.bfloat16)
+    hm = torch.rand((2, 17, 64, 48), device="cuda", generator=g)
+    q, k, v = (torch.randn((2, 197, 6, 64), device="cuda", generator=g)
+               .to(torch.bfloat16) for _ in range(3))
+    br = fw["bridge"]
+    cases = [
+        (cuda_stem.stem_pool_op, cuda_stem.stem_pool_impl,
+         (x0, fw["stem"]["w"], fw["stem"]["bias"]), cuda_stem.stem_pool, 1),
+        (cuda_layer1.layer1_op, cuda_layer1.layer1_impl,
+         (x1, cuda_layer1.flatten_layer1(fw["layer1"])), cuda_layer1.layer1,
+         3),
+        (cuda_bridge.bridge_op, cuda_bridge.bridge_impl,
+         (x2, *(br[n] for n in ("w1", "b1", "w2", "b2", "w3", "b3", "wds"))),
+         cuda_bridge.bridge, 1),
+        (cuda_decode.dark_decode_op, cuda_decode.dark_decode_impl,
+         (hm, 11, 2.0), cuda_decode.dark_decode, 1),
+        (cuda_attention.flash_attention_op,
+         cuda_attention.flash_attention_impl, (q, k, v, 0.125, True),
+         cuda_attention.flash_attention, 1)]
+    for op, impl, args, wrapper, per_call in cases:
+        n0 = wrapper.launches
+        got, want = op(*args), impl(*args)
+        torch.cuda.synchronize()
+        assert wrapper.launches == n0 + 2 * per_call
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(a, b)
+
+
+def test_loaded_heatmap_program_launches_k1_k4_each_call(card, tmp_path):
+    """The R50 256x192 heatmap program (float32 masters under bf16
+    autocast, flip, DARK), exported on the card and loaded back: its graph
+    calls the four tpupose_torch:: ops, each run launches K1/K2/K3/K4
+    exactly 2/6/2/1 times (never at export), and its output is within the
+    route's bounds of TopDownEvaluator.step."""
+    from tpupose_torch.engine.evaluator import TopDownEvaluator
+    from tpupose_torch.engine.exporter import (HeatmapProgram,
+                                               export_program, load_program,
+                                               program_ops)
+    from tpupose_torch.models.simple_baseline import SimpleBaseline
+    from tpupose_torch.ops import cuda_bridge, cuda_decode, cuda_layer1
+    from tpupose_torch.ops import cuda_stem
+
+    m = SimpleBaseline("resnet50", 17, dtype=torch.bfloat16, device="cuda",
+                       param_dtype=torch.float32,
+                       generator=torch.Generator().manual_seed(5))
+    ev = TopDownEvaluator(m, (64, 48), device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(6)
+    imgs = torch.randint(0, 256, (4, 256, 192, 3), device="cuda",
+                         dtype=torch.uint8, generator=g)
+    c = torch.full((4, 2), 100.0, device="cuda")
+    s = torch.full((4, 2), 200.0, device="cuda")
+    wrappers = (cuda_stem.stem_pool, cuda_layer1.layer1, cuda_bridge.bridge,
+                cuda_decode.dark_decode)
+    n0 = [w.launches for w in wrappers]
+    path = export_program(HeatmapProgram(ev), (imgs, c, s),
+                          str(tmp_path / "r50.pt2"))
+    assert [w.launches for w in wrappers] == n0
+    prog = load_program(path)
+    assert sorted(set(program_ops(prog))) == [
+        f"tpupose_torch.{n}.default"
+        for n in ("bridge", "dark_decode", "layer1", "stem_pool")]
+    for _ in range(2):
+        n0 = [w.launches for w in wrappers]
+        gc, gs = prog(imgs, c, s)
+        torch.cuda.synchronize()
+        assert [w.launches - n for w, n in zip(wrappers, n0)] == [2, 6, 2, 1]
+    wc, ws = ev.step(imgs, c, s)
+    assert ((gc - wc).norm(dim=-1) > 1.0).float().mean().item() <= 0.005
+    assert (gs - ws).abs().max().item() <= 1e-3
+
+
+def test_sync_batchnorm_on_the_card_equals_batchnorm(card, tmp_path):
+    """SyncBatchNorm2d on the card in a one-rank NCCL group over a
+    FileStore: train-mode output, input / weight / bias gradients and the
+    running statistics (flax's update) within 1e-4 of the plain
+    BatchNorm2d's for a float32 input, 2e-2 for a bf16 input (float32
+    weights)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from tpupose_torch.models.backbones.resnet import BatchNorm2d
+    from tpupose_torch.parallel.sync_bn import SyncBatchNorm2d
+
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=60))
+    try:
+        g = torch.Generator(device="cuda").manual_seed(8)
+        for dtype in (torch.float32, torch.bfloat16):
+            x0 = (torch.randn((4, 32, 12, 10), device="cuda", generator=g)
+                  * 2 + 0.5).to(dtype).contiguous(
+                      memory_format=torch.channels_last)
+            c = torch.randn(x0.shape, device="cuda", generator=g).to(dtype)
+            out = {}
+            for cls in (BatchNorm2d, SyncBatchNorm2d):
+                bn = cls(32).cuda().train()
+                gw = torch.Generator(device="cuda").manual_seed(9)
+                with torch.no_grad():
+                    bn.weight.uniform_(0.5, 1.5, generator=gw)
+                    bn.bias.uniform_(-0.5, 0.5, generator=gw)
+                x = x0.clone().requires_grad_()
+                y = bn(x)
+                (y.float() * c.float()).sum().backward()
+                out[cls.__name__] = (y.float(), x.grad.float(),
+                                     bn.weight.grad, bn.bias.grad,
+                                     bn.running_mean, bn.running_var)
+            tol = 1e-4 if dtype == torch.float32 else 2e-2
+            for a, b in zip(out["SyncBatchNorm2d"], out["BatchNorm2d"]):
+                assert _rel(a, b) < tol
+    finally:
+        dist.destroy_process_group()

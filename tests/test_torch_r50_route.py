@@ -118,7 +118,7 @@ def test_cuda_tensor_bridge_launches_the_kernel_or_raises(monkeypatch):
     (here a stubbed build that records the launch), never to the plain
     version, and raises ValueError on what the kernel does not take: an
     odd count of 8x8 output tiles per image (a cluster takes two), or
-    weights without their tensor maps."""
+    weights not folded on the card (without their tensor maps)."""
     import warnings
 
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -134,6 +134,8 @@ def test_cuda_tensor_bridge_launches_the_kernel_or_raises(monkeypatch):
     monkeypatch.setattr(_build, "bind", lambda src, name, argtypes: (
         lambda *args: launched.append((src, name, args[6:9])) or 0))
     monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(cuda_bridge, "_MAPS_CACHE", type(
+        cuda_bridge._MAPS_CACHE)())
     n0 = cuda_bridge.bridge.launches
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)   # fake data_ptr()
@@ -156,7 +158,10 @@ def test_cuda_tensor_bridge_launches_the_kernel_or_raises(monkeypatch):
                 cuda_bridge.bridge(torch.empty((2, 64, 48, 256),
                                                device="cuda"), w)
     assert out.device.type == "cuda" and tuple(out.shape) == (2, 32, 24, 512)
-    assert launched == [("bridge.cu", "tp_bridge", (2, 64, 48))]
+    # the op encodes the tensor maps of the weights it is given (once per
+    # set of addresses), then launches
+    assert launched == [("bridge.cu", "tp_bridge_weight_maps", ()),
+                        ("bridge.cu", "tp_bridge", (2, 64, 48))]
     assert cuda_bridge.bridge.launches == n0 + 1
 
 

@@ -556,11 +556,14 @@ def test_cuda_backward_goes_to_k8b_never_the_plain_version(monkeypatch):
     """The route of a CUDA attention that will be differentiated, on fake
     CUDA tensors (a torch without CUDA cannot record an autograd graph on
     them, so the autograd.Function's two halves are called as the engine
-    calls them): fused_attention asks for the saved-LSE forward exactly
-    when grad is enabled and an input requires grad; that forward hands
-    K8 a non-null LSE pointer and saves q, k, v, o and the LSE; the
-    backward is one launch of K8b's wrapper with the saved q/k/v strides.
-    Neither plain version is reached."""
+    calls them): fused_attention goes through the autograd.Function
+    exactly when grad is enabled and an input requires grad, and
+    otherwise straight to K8 (an eager call runs the body of K8's
+    torch.library op); the Function's forward hands K8 a non-null LSE
+    pointer and saves q, k, v, o and the LSE, the call without autograd
+    a null one;
+    the backward is one launch of K8b's wrapper with the saved q/k/v
+    strides. Neither plain version is reached."""
     import warnings
 
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -600,19 +603,20 @@ def test_cuda_backward_goes_to_k8b_never_the_plain_version(monkeypatch):
                 attention.fused_attention(q, k, v)
             q.requires_grad_(False)
             ctx = Ctx()
-            out = fn.forward(ctx, q, k, v, 0.125, True)
+            out = fn.forward(ctx, q, k, v, 0.125)
             grads = fn.backward(ctx, torch.ones_like(out))
-            fn.forward(Ctx(), q, k, v, 0.125, False)
-    assert applied == [False, True, False]
+    assert applied == [0.125]                # the one call that needs grad
     assert [len(t.shape) for t in ctx.saved_tensors] == [4, 4, 4, 4, 3]
     assert [tuple(g.shape) for g in grads[:3]] == [(2, 21, 2, 64)] * 3
-    assert grads[3:] == (None, None)
+    assert grads[3:] == (None,)
     assert [n for n, _ in launched] == ["tp_flash_attention",
-                                        "tp_flash_attention_bwd",
-                                        "tp_flash_attention"]
-    fwd, bwd, fwd_nograd = (a for _, a in launched)
-    assert fwd[-2] is not None and fwd_nograd[-2] is None      # lse pointer
+                                        "tp_flash_attention",
+                                        "tp_flash_attention",
+                                        "tp_flash_attention_bwd"]
+    nograd1, nograd2, fwd, bwd = (a for _, a in launched)
+    assert fwd[-2] is not None                                 # lse pointer
+    assert nograd1[-2] is None and nograd2[-2] is None
     s = (21 * 384, 384, 64)
     assert bwd[10:22] == (2, 21, 2, *s, *s, *s)
-    assert cuda_attention.flash_attention.launches == n0 + 2
+    assert cuda_attention.flash_attention.launches == n0 + 3
     assert cuda_attention.flash_attention_backward.launches == b0 + 1

@@ -2,7 +2,7 @@
 model over HTTP with dynamic micro-batching (engine/server.py).
 
     python -m tpupose_torch.cli.serve \
-        --cfg tpupose/configs/method/vitpose_s.yaml [--ckpt out/ckpt@best] \
+        --cfg tpupose_torch/configs/method/vitpose_s.yaml [--ckpt out/ckpt@best] \
         [--device cuda] serve.port=8080 serve.max_batch=64 serve.window_ms=4
 
 `--device` defaults to cuda (raises where CUDA is absent); `--device cpu`

@@ -2,17 +2,21 @@
 parse args -> merge YAML -> Trainer.train().
 
     python -m tpupose_torch.cli.train \
-        --cfg tpupose/configs/method/simple_baseline.yaml \
+        --cfg tpupose_torch/configs/method/simple_baseline.yaml \
         data.device_affine=true [--device cuda] [key=value ...]
     python -m tpupose_torch.cli.train \
-        --cfg tpupose/configs/method/vitpose_s.yaml [train.remat=true]
+        --cfg tpupose_torch/configs/method/vitpose_s.yaml [train.remat=true]
     python -m tpupose_torch.cli.train \
-        --cfg tpupose/configs/method/dinov3_vitpose.yaml \
+        --cfg tpupose_torch/configs/method/dinov3_vitpose.yaml \
         [model.freeze_backbone=false] [data.mosaic_prob=0.5]
 
     python -m tpupose_torch.cli.train \
-        --cfg tpupose/configs/method/fskd_small.yaml
-    python -m tpupose_torch.cli.train --cfg tpupose/configs/method/fcmae.yaml
+        --cfg tpupose_torch/configs/method/fskd_small.yaml
+    python -m tpupose_torch.cli.train --cfg tpupose_torch/configs/method/fcmae.yaml
+
+    torchrun --nproc_per_node=4 -m tpupose_torch.cli.train \
+        --cfg tpupose_torch/configs/method/simple_baseline.yaml \
+        data.device_affine=true
 
 model.name fskd trains with the EpisodicTrainer, fcmae with the
 MAETrainer (engine/episodic_trainer.py), every other model with Trainer.
@@ -20,7 +24,9 @@ MAETrainer (engine/episodic_trainer.py), every other model with Trainer.
 trains on the CPU. `--test` runs the loss-only `validate()`, then the
 metric `evaluate()` (heatmap family: PCK, MPJPE and COCO OKS-AP by
 default, eval.metrics; DINOv3Pose: val_loss and evaluate_yolo's OKS-AP),
-and prints both.
+and prints both. Under torchrun (WORLD_SIZE / RANK set) Trainer trains
+data-parallel, a device a process (engine/trainer.py, parallel/);
+train.batch_size stays the global batch.
 """
 
 from __future__ import annotations

@@ -4,9 +4,9 @@ appearance embeddings -> optional two-stage top-down refinement ->
 appearance + IoU tracking -> annotated frames and `tracks.jsonl`.
 
     python -m tpupose_torch.cli.video \
-        --cfg tpupose/configs/method/dinov3_vitpose.yaml [--ckpt dir[@best]] \
+        --cfg tpupose_torch/configs/method/dinov3_vitpose.yaml [--ckpt dir[@best]] \
         frames_dir=frames/ output_dir=tracked/ \
-        [pose_cfg=tpupose/configs/method/simple_baseline.yaml] \
+        [pose_cfg=tpupose_torch/configs/method/simple_baseline.yaml] \
         [pose_ckpt=dir[@best]] [--device cuda]
 
 Frames are resized to the detector's input size; the stage-2 crops are

@@ -2,11 +2,12 @@
 tpupose/configs/default.py).
 
 The same nested dataclasses, defaults, YAML merge (`merge_dict`), dotted
-CLI overrides (`merge_dotted`, `_coerce`) and freeze semantics, so the
-YAML files under tpupose/configs/method/ load into the port unchanged.
-The JAX package's `mesh` section (device-mesh topology) is left out: the
-port runs on one device until its data-parallel counterpart (DDP over
-NCCL) is ported.
+CLI overrides (`merge_dotted`, `_coerce`) and freeze semantics. The
+port's own copies of the method YAMLs are under
+tpupose_torch/configs/method/. `mesh` is the data-parallel layout
+(tpupose_torch/parallel/mesh.py): `mesh.data` processes of
+torchrun, each on its own device; `mesh.model > 1`, the tensor-parallel
+axis, raises (ROADMAP Queue A item 12e).
 """
 
 from __future__ import annotations
@@ -214,6 +215,13 @@ class ServeConfig:
 
 
 @dataclass
+class MeshConfig:
+    """Data-parallel layout (the `--gpus` analog)."""
+    data: int = -1                      # -1: every process of the group
+    model: int = 1                      # tensor-parallel axis: 1 only
+
+
+@dataclass
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
@@ -222,6 +230,7 @@ class Config:
     loss: LossConfig = field(default_factory=LossConfig)
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     lr_scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
 
     _frozen: bool = field(default=False, repr=False, compare=False)

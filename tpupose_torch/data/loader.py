@@ -1,9 +1,11 @@
 """Host batching + device prefetch (the port's copy of
 tpupose/data/loader.py).
 
-`BatchLoader` is copied as it is (numpy collation of static-shape
-samples, optional worker threads, a dataset's batched `get_batch` where
-it has one, e.g. COCO's fused native decode + crop). `prefetch_to_device` keeps `depth`
+`BatchLoader` is copied (numpy collation of static-shape samples,
+optional worker threads, a dataset's batched `get_batch` where it has
+one, e.g. COCO's fused native decode + crop), with `shard` for data
+parallelism: each rank loads its contiguous slice of every global
+batch. `prefetch_to_device` keeps `depth`
 batches in flight: each numpy field is copied into pinned host memory
 and sent to the device with a `non_blocking` copy, so host collation and
 the host-to-device transfer overlap the train step on the card.
@@ -25,7 +27,7 @@ class BatchLoader:
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, seed: int = 0, num_workers: int = 0,
-                 pad_last: bool = False):
+                 pad_last: bool = False, shard=(0, 1)):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -36,6 +38,13 @@ class BatchLoader:
         # real rows in a `pad_mask` — every batch then has the same static
         # shape (the JAX package compiles its eval program once for it)
         self.pad_last = pad_last
+        # shard (rank, world): data parallelism. The epoch's order and its
+        # global batches of `batch_size` are every rank's alike (one seed);
+        # this rank loads only its contiguous slice of each
+        self.shard = tuple(shard)
+        if self.shard[1] > 1 and (pad_last or not drop_last):
+            raise ValueError("a sharded loader takes whole global batches "
+                             "only (drop_last, no pad_last)")
 
     def __len__(self):
         n = len(self.dataset)
@@ -58,6 +67,10 @@ class BatchLoader:
         if self.pad_last and len(sel) < self.batch_size:
             pad = self.batch_size - len(sel)
             sel = np.concatenate([sel, np.repeat(sel[-1:], pad)])
+        if self.shard[1] > 1:
+            from tpupose_torch.parallel.mesh import local_slice
+
+            sel = sel[local_slice(len(sel), *self.shard)]
         if hasattr(self.dataset, "get_batch"):
             # batched fast path (e.g. the native fused decode+crop)
             samples = self.dataset.get_batch(sel)

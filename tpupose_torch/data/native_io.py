@@ -6,7 +6,8 @@ tpupose/data/native_io.py, for tpupose_torch/native/io.cc).
 io.cc and the Makefile, so an edited source is rebuilt) and loads it, or
 returns None where the toolchain or libjpeg's header is missing: callers
 then take the PIL path, as the JAX package does. This is host code, not a
-kernel: it decodes JPEGs and crops them on a std::thread pool.
+kernel: it decodes JPEGs and crops or stretch-resizes them on a
+std::thread pool, and parses YOLO-pose label files.
 """
 
 from __future__ import annotations
@@ -24,6 +25,12 @@ from tpupose_torch.utils.logging import printT, printW
 NATIVE_DIR = Path(__file__).resolve().parent.parent / "native"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpupose_torch" \
     / "native"
+# the entry points this module binds; a library lacking one (or carrying
+# another ABI version) is not used
+NEEDED = ("tp_decode_jpeg_resize", "tp_decode_jpeg_batch",
+          "tp_parse_yolo_label", "tp_decode_warp_batch",
+          "tp_decode_prescaled_batch", "tp_warp_batch", "tp_io_version")
+IO_VERSION = 4
 _lock = threading.Lock()
 _lib = None
 _tried = False
@@ -61,6 +68,23 @@ def get_lib():
         except OSError as e:
             printW(f"native io load failed ({e}); using PIL fallback")
             return None
+        if not all(hasattr(lib, n) for n in NEEDED) \
+                or lib.tp_io_version() != IO_VERSION:
+            printW(f"native io library {so.name} lacks an entry point or "
+                   f"has another ABI version; using PIL fallback")
+            return None
+        lib.tp_decode_jpeg_resize.argtypes = [
+            ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_uint8)]
+        lib.tp_decode_jpeg_resize.restype = ctypes.c_int
+        lib.tp_decode_jpeg_batch.argtypes = [
+            ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int]
+        lib.tp_decode_jpeg_batch.restype = ctypes.c_int
+        lib.tp_parse_yolo_label.argtypes = [
+            ctypes.c_char_p, ctypes.POINTER(ctypes.c_float), ctypes.c_int,
+            ctypes.c_int]
+        lib.tp_parse_yolo_label.restype = ctypes.c_int
         lib.tp_decode_warp_batch.argtypes = [
             ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_float),
             ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -82,6 +106,72 @@ def get_lib():
         _lib = lib
         printT(f"native io runtime loaded ({so.name})")
         return _lib
+
+
+def decode_jpeg_batch(paths, out_h: int, out_w: int,
+                      num_threads: int = 8) -> np.ndarray:
+    """Decode and stretch-resize JPEGs to (N, out_h, out_w, 3) uint8: the
+    native threaded path (DCT-prescaled decode, then a bilinear resize;
+    a file that fails is zero-filled) where the library loads, else PIL's
+    decode and `resize`. The two paths give different pixels, as in the
+    JAX package."""
+    lib = get_lib()
+    n = len(paths)
+    out = np.empty((n, out_h, out_w, 3), np.uint8)
+    if lib is not None and n:
+        arr = (ctypes.c_char_p * n)(*[p.encode() for p in paths])
+        fails = lib.tp_decode_jpeg_batch(
+            arr, n, out_h, out_w,
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), num_threads)
+        if fails:
+            printW(f"native decode: {fails}/{n} failures (zero-filled)")
+        return out
+    from PIL import Image
+
+    for i, p in enumerate(paths):
+        with Image.open(p) as im:
+            out[i] = np.asarray(im.convert("RGB").resize((out_w, out_h)),
+                                np.uint8)
+    return out
+
+
+def parse_yolo_label(path: str, cols: int, max_rows: int = 256):
+    """One YOLO label file -> (rows, cols) float32, or None when a row
+    has another column count or trailing text (the check_file rule). A
+    missing or empty file gives 0 rows; a file with more than `max_rows`
+    rows is read again at its exact size, so no row is dropped. numpy
+    parsing where the native library is absent."""
+    lib = get_lib()
+    if lib is not None:
+        fp = ctypes.POINTER(ctypes.c_float)
+        buf = np.zeros((max_rows, cols), np.float32)
+        r = lib.tp_parse_yolo_label(path.encode(), buf.ctypes.data_as(fp),
+                                    max_rows, cols)
+        if r == -2:                          # no such file
+            return np.zeros((0, cols), np.float32)
+        if r < 0:
+            return None
+        if r > max_rows:
+            buf = np.zeros((r, cols), np.float32)
+            r = lib.tp_parse_yolo_label(path.encode(),
+                                        buf.ctypes.data_as(fp), r, cols)
+            if r < 0:
+                return None
+        return buf[:r].copy()
+    try:
+        f = open(path)
+    except FileNotFoundError:
+        return np.zeros((0, cols), np.float32)
+    rows = []
+    with f:
+        for ln in f:
+            vals = ln.split()
+            if not vals:
+                continue
+            if len(vals) != cols:
+                return None
+            rows.append([float(v) for v in vals])
+    return np.asarray(rows, np.float32).reshape(-1, cols)
 
 
 def _prescale_dims(full_w: int, full_h: int, shrink: float):

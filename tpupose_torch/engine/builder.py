@@ -5,10 +5,10 @@ deeppose, bottom_up, fskd, fcmae), `loss()` (joints_mse, joints_mse_weighted,
 DINOv3Pose's pose_compute and v8_pose, coord_mse, rle, ae, simcc_kl),
 `lr_scheduler()`, `optimizer()` (head/base lr
 split, frozen backbone, global-norm clipping), `dataset()` (synthetic,
-synthetic_yolo, coco) and `dataloader()`. Any other
-name raises ValueError naming the ROADMAP item that ports it. The JAX
-package's `set_device` (a device mesh) has no counterpart yet: the port
-trains on one device.
+synthetic_yolo, yolo_pose, coco, mpii), `dataloader()` (under data
+parallelism each process loads its own contiguous slice of every global
+batch) and `set_device()`, the data-parallel layout of `mesh`
+(parallel/mesh.MeshManager).
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ class Builder:
     def __init__(self, cfg, device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self._mesh_mgr = None
 
     # -- model -----------------------------------------------------------------
     def model(self):
@@ -161,9 +162,17 @@ class Builder:
         return self.cfg.model.reg_max
 
     # -- loss ------------------------------------------------------------------
-    def loss(self):
+    def loss(self, count=None):
+        """The configured loss; `count`, where given, is the normaliser of
+        its weighted counts (losses/normalize.py; a data-parallel
+        Trainer's parallel/mesh.global_count), else this process's."""
         from tpupose_torch.losses.heatmap import (joints_mse_loss,
                                                   joints_mse_weighted_loss)
+
+        kw = {} if count is None else {"count": count}
+
+        def bound(fn):
+            return functools.partial(fn, **kw) if kw else fn
 
         name = self.cfg.loss.name
         lc, m = self.cfg.loss, self.cfg.model
@@ -176,43 +185,44 @@ class Builder:
                                kpt_loss_type=lc.kpt_loss_type,
                                cls_weight=lc.cls_weight,
                                kpt_weight=lc.kpt_weight,
-                               vis_weight=lc.vis_weight)
+                               vis_weight=lc.vis_weight, **kw)
         if name == "v8_pose":
             from tpupose_torch.losses.v8 import v8PoseLoss
 
             return v8PoseLoss(num_keypoints=m.num_keypoints,
                               num_classes=m.num_classes,
                               strides=tuple(m.strides),
-                              reg_max=self._reg_max())
+                              reg_max=self._reg_max(), **kw)
         if name == "joints_mse":
             utw = self.cfg.loss.use_target_weight
 
             def fn(pred, target, target_weight=None):
-                return joints_mse_loss(pred, target, target_weight, utw)
+                return joints_mse_loss(pred, target, target_weight, utw,
+                                       **kw)
 
             return fn
         if name == "joints_mse_weighted":
-            return joints_mse_weighted_loss
+            return bound(joints_mse_weighted_loss)
         if name == "coord_mse":
             from tpupose_torch.losses.heatmap import coord_mse_loss
 
-            return coord_mse_loss
+            return bound(coord_mse_loss)
         if name == "rle":
             from tpupose_torch.losses.rle import rle_loss
 
             return functools.partial(rle_loss, residual=lc.rle_residual,
-                                     q=lc.rle_q)
+                                     q=lc.rle_q, **kw)
         if name == "ae":
             from tpupose_torch.losses.ae import ae_loss
 
             return functools.partial(ae_loss, sigma=self.cfg.data.sigma,
                                      tag_sigma=lc.ae_tag_sigma,
                                      pull_weight=lc.ae_pull_weight,
-                                     push_weight=lc.ae_push_weight)
+                                     push_weight=lc.ae_push_weight, **kw)
         if name == "simcc_kl":
             from tpupose_torch.losses.simcc import simcc_kl_loss
 
-            return simcc_kl_loss
+            return bound(simcc_kl_loss)
         raise ValueError(f"unknown loss {name!r}")
 
     # -- optimizer + schedule --------------------------------------------------
@@ -260,8 +270,21 @@ class Builder:
                 num_keypoints=self.cfg.model.num_keypoints,
                 num_classes=self.cfg.model.num_classes,
                 max_instances=d.max_instances)
+        if d.name == "yolo_pose":
+            from tpupose_torch.data.yolo_pose import YoloPoseDataset
+
+            root = d.train_dir if split == "train" else d.valid_dir
+            return YoloPoseDataset(
+                image_dir=f"{root}/images", label_dir=f"{root}/labels",
+                image_size=tuple(d.image_size),
+                num_keypoints=self.cfg.model.num_keypoints,
+                max_instances=d.max_instances)
+        if d.name == "mpii":
+            from tpupose_torch.data.mpii import MpiiTopDownDataset
+
+            return MpiiTopDownDataset.from_config(self.cfg, split)
         if d.name != "synthetic":
-            raise _unported("dataset", d.name, "Queue A item 12b")
+            raise ValueError(f"unknown dataset {d.name!r}")
         from tpupose_torch.data.synthetic import SyntheticTopDownDataset
 
         n = 256 if split == "train" else 64
@@ -271,15 +294,35 @@ class Builder:
             num_keypoints=self.cfg.model.num_keypoints,
             seed=0 if split == "train" else 1)
 
+    def set_device(self):
+        """The data-parallel layout of cfg.mesh (parallel/mesh.
+        MeshManager: the process group where torchrun started this
+        process, one device a process), built once."""
+        if self._mesh_mgr is None:
+            from tpupose_torch.parallel.mesh import MeshManager
+
+            self._mesh_mgr = MeshManager(data=self.cfg.mesh.data,
+                                         model=self.cfg.mesh.model,
+                                         device=self.device)
+        return self._mesh_mgr
+
     def dataloader(self, dataset, split: str = "train"):
+        """train.batch_size is the global batch: under data parallelism
+        each rank's train loader loads its slice of it. Evaluation loads
+        the whole valid set on every rank, the tail batch padded
+        (pad_mask)."""
         from tpupose_torch.data.loader import BatchLoader
 
         bs = (self.cfg.train.batch_size if split == "train"
               else self.cfg.eval.batch_size)
         bs = min(bs, len(dataset)) if len(dataset) else bs
-        # eval keeps every sample and pads the tail batch (pad_mask)
+        shard = (0, 1)
+        if split == "train" and self._mesh_mgr is not None:
+            mm = self._mesh_mgr
+            mm.local_batch_size(bs)                 # divisible, or raise
+            shard = (mm.rank, mm.world)
         return BatchLoader(dataset, batch_size=bs, shuffle=(split == "train"),
                            drop_last=(split == "train"),
                            seed=self.cfg.train.seed,
                            num_workers=self.cfg.data.num_workers,
-                           pad_last=(split != "train"))
+                           pad_last=(split != "train"), shard=shard)

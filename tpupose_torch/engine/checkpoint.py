@@ -70,10 +70,10 @@ class CheckpointManager:
         if metric is not None and metric < self.best_metric:
             self.best_metric = float(metric)
             self.best_step = step
-            for old in _steps(self._best):
-                os.remove(os.path.join(self._best, f"{old}.pt"))
-            self._write(state, os.path.join(self._best, f"{step}.pt"))
-            if is_master():
+            if is_master():          # under data parallelism rank 0 writes
+                for old in _steps(self._best):
+                    os.remove(os.path.join(self._best, f"{old}.pt"))
+                self._write(state, os.path.join(self._best, f"{step}.pt"))
                 with open(self._meta_path, "w") as f:
                     json.dump({"metric": self.best_metric,
                                "step": self.best_step}, f)
@@ -82,9 +82,10 @@ class CheckpointManager:
         due = ((epoch + 1) % self.interval == 0 if epoch is not None
                else step % self.interval == 0)
         if force or due:
-            self._write(state, os.path.join(self._periodic, f"{step}.pt"))
-            for old in _steps(self._periodic)[:-self.max_to_keep]:
-                os.remove(os.path.join(self._periodic, f"{old}.pt"))
+            if is_master():
+                self._write(state, os.path.join(self._periodic, f"{step}.pt"))
+                for old in _steps(self._periodic)[:-self.max_to_keep]:
+                    os.remove(os.path.join(self._periodic, f"{old}.pt"))
             printT(f"checkpoint saved @ step {step}")
 
     def restore(self, state, step: Optional[int] = None, best: bool = False):

@@ -59,6 +59,38 @@ class TrainState:
         self.ema = ([p.detach().clone() for p in model.parameters()]
                     if self.ema_decay > 0 else None)
         self._eval_model = None
+        # data parallelism (Trainer under torchrun): this process's rank
+        # of `dp_world`, and the DistributedDataParallel wrapper the steps
+        # run the model through
+        self.dp_rank, self.dp_world = 0, 1
+        self.ddp = None
+
+    def train_module(self) -> torch.nn.Module:
+        """The module a train step calls, in train mode: the model, or its
+        DistributedDataParallel wrapper."""
+        self.model.train()
+        return self.ddp if self.ddp is not None else self.model
+
+    def local_draws(self, draws_for, batch: int, device) -> dict:
+        """The step's random draws for this rank's `batch` rows: drawn for
+        the global batch (batch x dp_world rows, the same on every rank)
+        and cut to this rank's slice, so the ranks together draw what one
+        process draws at the global batch."""
+        draws = draws_for(self.step, batch * self.dp_world, device)
+        if self.dp_world == 1:
+            return draws
+        rows = slice(self.dp_rank * batch, (self.dp_rank + 1) * batch)
+        return {k: tuple(t[rows] for t in v) for k, v in draws.items()}
+
+    def global_mean(self, t: torch.Tensor) -> torch.Tensor:
+        """A per-rank scalar averaged over the ranks (t itself on one)."""
+        if self.dp_world == 1:
+            return t
+        import torch.distributed as dist
+
+        t = t.clone()
+        dist.all_reduce(t)
+        return t / self.dp_world
 
     @torch.no_grad()
     def apply_gradients(self) -> torch.Tensor:
@@ -153,10 +185,12 @@ def _augment(images, joints, vis, draws, use_affine: bool, grid_hw,
 
 
 def _backward_update(state: TrainState, loss) -> dict:
+    """Backward (DDP averages the gradients over the ranks as it goes),
+    clip + update; the loss reported is the ranks' mean."""
     state.optimizer.zero_grad()
     loss.backward()
     grad_norm = state.apply_gradients()
-    return {"loss": loss.detach(), "grad_norm": grad_norm}
+    return {"loss": state.global_mean(loss.detach()), "grad_norm": grad_norm}
 
 
 def make_heatmap_train_step(loss_fn, color_jitter_strength: float = 0.0,
@@ -164,7 +198,7 @@ def make_heatmap_train_step(loss_fn, color_jitter_strength: float = 0.0,
                             sigma: float = 2.0, affine_rotation: float = 0.0,
                             affine_scale: float = 0.0, udp: bool = False,
                             teacher: torch.nn.Module | None = None,
-                            distill_weight: float = 0.5):
+                            distill_weight: float = 0.5, count=None):
     """The heatmap-family train step, `step(state, batch, draws=None)`.
 
     batch: {"images": uint8/float NHWC} plus EITHER {"target" (B, Hh, Wh,
@@ -181,8 +215,13 @@ def make_heatmap_train_step(loss_fn, color_jitter_strength: float = 0.0,
     2019). The frozen teacher's eval-mode forward runs without a graph on
     the same augmented, jittered and normalised pixels, and the loss is
     (1 - w) task + w joints_mse(student, teacher, target_weight) with w =
-    distill_weight; the metrics gain "task_loss" and "kd_loss"."""
+    distill_weight; the metrics gain "task_loss" and "kd_loss". `count`
+    normalises the distillation loss as loss_fn's own (losses/
+    normalize.py; this process's batch by default)."""
     from tpupose_torch.losses.heatmap import joints_mse_loss
+    from tpupose_torch.losses.normalize import local_count
+
+    count = count or local_count
     use_affine = affine_rotation > 0 or affine_scale > 0
     if use_affine and heatmap_size is None:
         raise ValueError("device affine augmentation needs heatmap_size")
@@ -195,7 +234,8 @@ def make_heatmap_train_step(loss_fn, color_jitter_strength: float = 0.0,
                              "not precomputed targets")
         images = batch["images"]
         if draws is None:
-            draws = draws_for(state.step, images.shape[0], images.device)
+            draws = state.local_draws(draws_for, images.shape[0],
+                                      images.device)
         imgs, joints, vis = _augment(
             images, batch.get("joints"), batch.get("visibility"), draws,
             use_affine, heatmap_size, udp, color_jitter_strength)
@@ -206,17 +246,18 @@ def make_heatmap_train_step(loss_fn, color_jitter_strength: float = 0.0,
                 raise ValueError("need heatmap_size to render targets")
             t, tw = gaussian_heatmaps(joints, vis, tuple(heatmap_size), sigma)
             target = t.permute(0, 2, 3, 1)               # NKHW -> NHWK
-        model = state.model.train()
+        model = state.train_module()
         pred = model(imgs)
         task = loss_fn(pred, target, tw)
         if teacher is None:
             return _backward_update(state, task)
         with torch.no_grad():
             t_hm = teacher.eval()(imgs)
-        kd = joints_mse_loss(pred, t_hm, tw)
+        kd = joints_mse_loss(pred, t_hm, tw, count=count)
         metrics = _backward_update(
             state, (1.0 - distill_weight) * task + distill_weight * kd)
-        metrics.update(task_loss=task.detach(), kd_loss=kd.detach())
+        metrics.update(task_loss=state.global_mean(task.detach()),
+                       kd_loss=state.global_mean(kd.detach()))
         return metrics
 
     train_step.draws_for = draws_for
@@ -244,12 +285,13 @@ def make_simcc_train_step(loss_fn, bins_hw, sigma: float = 6.0,
     def train_step(state: TrainState, batch: dict, draws: dict = None):
         images = batch["images"]
         if draws is None:
-            draws = draws_for(state.step, images.shape[0], images.device)
+            draws = state.local_draws(draws_for, images.shape[0],
+                                      images.device)
         imgs, joints, vis = _augment(
             images, batch["joints"], batch["visibility"], draws, use_affine,
             bins_hw, udp, color_jitter_strength)
         tx, ty, tw = gaussian_1d_targets(joints, vis, bins_hw, sigma)
-        model = state.model.train()
+        model = state.train_module()
         return _backward_update(state, loss_fn(model(imgs), (tx, ty), tw))
 
     train_step.draws_for = draws_for
@@ -266,7 +308,7 @@ def make_regression_train_step(loss_fn):
     (B, K, 2) normalized, "visibility" (B, K)}."""
 
     def train_step(state: TrainState, batch: dict, draws: dict = None):
-        model = state.model.train()
+        model = state.train_module()
         preds = model(normalize_images(batch["images"]))
         return _backward_update(state, loss_fn(preds, batch["target_coords"],
                                                batch.get("visibility")))
@@ -283,7 +325,7 @@ def make_rle_train_step(loss_fn):
     flow, the head and the backbone in one backward."""
 
     def train_step(state: TrainState, batch: dict, draws: dict = None):
-        model = state.model.train()
+        model = state.train_module()
         target = batch["target_coords"]
         mu, sigma, log_phi = model(normalize_images(batch["images"]),
                                    target=target)
@@ -303,12 +345,13 @@ def make_bottom_up_train_step(loss_fn):
     "hm_loss", "pull", "push"} as device tensors."""
 
     def train_step(state: TrainState, batch: dict, draws: dict = None):
-        model = state.model.train()
+        model = state.train_module()
         pred = model(normalize_images(batch["images"]))
         loss, parts = loss_fn(pred, batch["keypoints"],
                               batch["instance_mask"])
         metrics = _backward_update(state, loss)
-        metrics.update({k: v.detach() for k, v in parts.items()})
+        metrics.update({k: state.global_mean(v.detach())
+                        for k, v in parts.items()})
         return metrics
 
     train_step.draws_for = _no_draws
@@ -332,11 +375,11 @@ def make_yolo_train_step(loss_fn, mosaic_prob: float = 0.0,
     place and returns {"loss", "grad_norm", "loss_<part>"...[,
     "mosaic_dropped"]} as device tensors."""
 
-    def draws_for(step: int, batch: int, device) -> dict:
+    def draws_for(step: int, batch: int, device, rank: int = 0) -> dict:
         if mosaic_prob <= 0:
             return {}
         g = torch.Generator(device=device)
-        g.manual_seed(step_seed(mosaic_seed, step))
+        g.manual_seed(step_seed(mosaic_seed + (rank << 16), step))
         return {"mosaic": draw_mosaic(g, batch)}
 
     def train_step(state: TrainState, batch: dict, draws: dict = None):
@@ -345,7 +388,10 @@ def make_yolo_train_step(loss_fn, mosaic_prob: float = 0.0,
         extra = {}
         if mosaic_prob > 0:
             if draws is None:
-                draws = draws_for(state.step, images.shape[0], images.device)
+                # the mosaic mixes the images of one batch: under data
+                # parallelism each rank mixes its own, on its own draws
+                draws = draws_for(state.step, images.shape[0], images.device,
+                                  state.dp_rank)
             (images, targets["boxes"], targets["classes"],
              targets["keypoints"], targets["instance_mask"],
              extra["mosaic_dropped"]) = mosaic_augment_normalized(
@@ -353,13 +399,11 @@ def make_yolo_train_step(loss_fn, mosaic_prob: float = 0.0,
                 targets["keypoints"], targets["instance_mask"],
                 draws["mosaic"], prob=mosaic_prob)
         imgs = normalize_images(images, scale_only=True)
-        model = state.model.train()
+        model = state.train_module()
         loss, parts = loss_fn(model(imgs), targets)
-        state.optimizer.zero_grad()
-        loss.backward()
-        grad_norm = state.apply_gradients()
-        metrics = {"loss": loss.detach(), "grad_norm": grad_norm}
-        metrics.update({f"loss_{k}": v.detach() for k, v in parts.items()})
+        metrics = _backward_update(state, loss)
+        metrics.update({f"loss_{k}": state.global_mean(v.detach())
+                        for k, v in parts.items()})
         metrics.update(extra)
         return metrics
 

@@ -27,8 +27,19 @@ PCKh (K > 9), MPJPE, AUC, EPE in source pixels; bottom-up:
 SIGTERM/SIGINT checkpoint guard, `save_checkpoint` and
 `load_checkpoint`, and pretrained backbone weights (`model.pretrained`, a
 torch checkpoint loaded by models/pretrained.load_pretrained and copied
-into the EMA). Not ported yet (ROADMAP Queue A): the device mesh (item
-12d).
+into the EMA), and data parallelism: under torchrun (`cfg.mesh`,
+Builder.set_device) the model's BatchNorms synchronise their statistics
+over the ranks (parallel/sync_bn.py) and the steps run it through
+DistributedDataParallel; train.batch_size is the global batch, each
+rank loading its contiguous slice of it, and a step's random draws
+(device affine, color jitter) are drawn for the global batch and sliced,
+and the losses are normalised by their counts over the global batch
+(the losses' `count`, MeshManager.loss_count), so the ranks together
+take the step one process takes at the global batch (the yolo family's
+mosaic mixes each rank's own images: with it the ranks' step is DDP's,
+not one process's). EMA, checkpoints and logs come from rank 0;
+every rank restores, evaluates and validates the whole valid set.
+The tensor-parallel axis (mesh.model > 1) raises (Queue A item 12e).
 
 Runs on `device` (default "cuda"; raises where CUDA is absent). On the
 card a ViTPose step runs the flash-attention kernels K8 (forward) and K8b
@@ -83,6 +94,7 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.builder = builder or Builder(cfg, self.device)
+        self.mesh_mgr = self.builder.set_device()
         if cfg.loss.name not in _FAMILIES:
             raise ValueError(f"unknown loss {cfg.loss.name!r}")
         self.family = _FAMILIES[cfg.loss.name]
@@ -107,7 +119,13 @@ class Trainer:
                 with torch.no_grad():
                     torch._foreach_copy_(self.state.ema,
                                          list(self.model.parameters()))
-        self.loss_fn = self.builder.loss()
+        self.mesh_mgr.shard_state(self.state)
+        if self.mesh_mgr.distributed:
+            self._wrap_data_parallel()
+        # under a process group the losses normalise by their counts over
+        # the global batch
+        count = self.mesh_mgr.loss_count()
+        self.loss_fn = self.builder.loss(count)
         self.teacher = None                 # the heatmap family's, distilling
         dev_aff = cfg.data.device_affine
         aug = dict(color_jitter_strength=cfg.data.color_jitter,
@@ -136,7 +154,7 @@ class Trainer:
             self.train_step = make_heatmap_train_step(
                 self.loss_fn, heatmap_size=tuple(cfg.model.heatmap_size),
                 sigma=cfg.data.sigma, teacher=self.teacher,
-                distill_weight=cfg.train.distill_weight, **aug)
+                distill_weight=cfg.train.distill_weight, count=count, **aug)
         self.eval_step = make_heatmap_eval_step()
         self.img_per_s = float("nan")       # the last epoch's figure
         self._evaluator = None              # built by the first evaluate()
@@ -150,6 +168,32 @@ class Trainer:
         self._exit_signal = None
         if cfg.model.checkpoint:
             self.load_checkpoint(cfg.model.checkpoint)
+
+    def _wrap_data_parallel(self):
+        """Data parallelism over the process group: the model's BatchNorms
+        become SyncBatchNorm2d (global-batch statistics, as under JAX's
+        jit sharding), and the train steps run it through
+        DistributedDataParallel, whose backward averages the gradients
+        over the ranks, so the clip and the update see the global
+        gradient. Buffers are not broadcast (the synchronised statistics
+        are equal on every rank), and a parameter a step leaves unused (a
+        frozen backbone, a branch the family does not run) is allowed."""
+        from torch.nn.parallel import DistributedDataParallel
+
+        from tpupose_torch.parallel.sync_bn import convert_sync_batchnorm
+
+        convert_sync_batchnorm(self.model)
+        dev = self.device
+        if dev.type == "cuda":
+            ids = [dev.index if dev.index is not None
+                   else torch.cuda.current_device()]
+        else:
+            ids = None
+        self.state.ddp = DistributedDataParallel(
+            self.model, device_ids=ids,
+            broadcast_buffers=False, find_unused_parameters=True)
+        self.state.dp_rank = self.mesh_mgr.rank
+        self.state.dp_world = self.mesh_mgr.world
 
     def _build_teacher(self) -> torch.nn.Module:
         """The distillation teacher (train.distill_cfg / distill_ckpt):
@@ -256,7 +300,7 @@ class Trainer:
         for step, db in enumerate(self._prefetched(self.train_loader)):
             metrics = self.train_step(self.state, db)
             self._check_exit_signal()
-            n_img += db["images"].shape[0]
+            n_img += db["images"].shape[0] * self.state.dp_world
             logged = ((step + 1) % self.cfg.train.log_interval == 0
                       or step == 0)
             if logged:

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from tpupose_torch.ops.heatmap import gaussian_heatmaps
+from tpupose_torch.losses.normalize import local_count
 
 
 def multi_person_heatmaps(keypoints, instance_mask, heatmap_size,
@@ -54,11 +55,13 @@ def gather_tags(tags, keypoints, instance_mask):
     return vals, valid.float()
 
 
-def ae_grouping_loss(tags, keypoints, instance_mask, tag_sigma: float = 1.0):
+def ae_grouping_loss(tags, keypoints, instance_mask, tag_sigma: float = 1.0,
+                     *, count=local_count):
     """Newell push/pull over reference embeddings: pull draws each
     person's joints to the person's mean tag, push is exp(-(h_m - h_n)^2
     / (2 sigma^2)) between distinct persons; both exact masked means over
-    the padded instance slots. Returns (pull, push)."""
+    the padded instance slots, normalised by `count` of persons and of
+    pairs (losses/normalize.py). Returns (pull, push)."""
     t, v = gather_tags(tags, keypoints, instance_mask)       # (B, M, K)
     cnt = v.sum(-1)                                          # (B, M)
     person = cnt > 0
@@ -66,20 +69,21 @@ def ae_grouping_loss(tags, keypoints, instance_mask, tag_sigma: float = 1.0):
     pull_per = (((t - h[..., None]) ** 2) * v).sum(-1) \
         / torch.clamp_min(cnt, 1.0)
     n_person = person.float().sum()
-    pull = (pull_per * person).sum() / torch.clamp_min(n_person, 1.0)
+    pull = (pull_per * person).sum() / count(n_person)
     d2 = (h[:, :, None] - h[:, None, :]) ** 2                # (B, M, M)
     eye = torch.eye(keypoints.shape[1], dtype=torch.bool,
                     device=tags.device)[None]
     pair = person[:, :, None] & person[:, None, :] & ~eye
     n_pair = pair.float().sum()
     push = (torch.exp(-d2 / (2.0 * tag_sigma ** 2)) * pair).sum() \
-        / torch.clamp_min(n_pair, 1.0)
+        / count(n_pair)
     return pull, push
 
 
 def ae_loss(pred, keypoints, instance_mask, *, sigma: float = 2.0,
             tag_sigma: float = 1.0, pull_weight: float = 1e-3,
-            push_weight: float = 1e-3, heatmap_weight: float = 1.0):
+            push_weight: float = 1e-3, heatmap_weight: float = 1.0,
+            count=local_count):
     """The bottom-up objective on a (B, H, W, 2K) prediction (channels
     [0:K] heatmaps, [K:2K] tags). Returns (loss, {"hm_loss", "pull",
     "push"}). Rows whose instance mask is all zero (the eval loader's
@@ -91,7 +95,8 @@ def ae_loss(pred, keypoints, instance_mask, *, sigma: float = 2.0,
                                    (pred.shape[1], pred.shape[2]), sigma)
     row = (instance_mask.sum(1) > 0).float()                 # (B,)
     per_row = ((hm - target) ** 2).mean(dim=(1, 2, 3))
-    hm_loss = (per_row * row).sum() / torch.clamp_min(row.sum(), 1.0)
-    pull, push = ae_grouping_loss(tags, keypoints, instance_mask, tag_sigma)
+    hm_loss = (per_row * row).sum() / count(row.sum())
+    pull, push = ae_grouping_loss(tags, keypoints, instance_mask, tag_sigma,
+                                  count=count)
     loss = heatmap_weight * hm_loss + pull_weight * pull + push_weight * push
     return loss, {"hm_loss": hm_loss, "pull": pull, "push": push}

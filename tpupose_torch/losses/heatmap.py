@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from tpupose_torch.losses.normalize import local_count
+
 
 def _joint_weights(pred, target_weight):
     """(B, K) weights broadcast against NHWK or NKHW heatmaps; the K axis
@@ -20,10 +22,12 @@ def _joint_weights(pred, target_weight):
 
 
 def joints_mse_loss(pred, target, target_weight=None,
-                    use_target_weight: bool = True) -> torch.Tensor:
+                    use_target_weight: bool = True, *,
+                    count=local_count) -> torch.Tensor:
     """pred/target: (B, Hh, Wh, K) or (B, K, Hh, Wh); target_weight (B, K).
     Returns a float32 scalar. With weights, the masked squared error is
-    normalised by the weight sum (at least 1) times the pixels per map."""
+    normalised by count(weight sum) (losses/normalize.py) times the
+    pixels per map."""
     pred = pred.float()
     target = target.float()
     if pred.dim() != 4:
@@ -32,14 +36,15 @@ def joints_mse_loss(pred, target, target_weight=None,
         target_weight = target_weight.float()
         K = target_weight.shape[-1]
         se = (pred - target) ** 2 * _joint_weights(pred, target_weight)
-        denom = torch.clamp_min(target_weight.sum(), 1.0)
+        denom = count(target_weight.sum())
         per_px = pred.numel() / (pred.shape[0] * K)
         return 0.5 * se.sum() / (denom * per_px)
     return 0.5 * torch.mean((pred - target) ** 2)
 
 
 def joints_mse_weighted_loss(pred, target, target_weight=None,
-                             peak_weight: float = 9.0) -> torch.Tensor:
+                             peak_weight: float = 9.0, *,
+                             count=local_count) -> torch.Tensor:
     """Heatmap-weighting MSE (arXiv:2205.10611): per-pixel weight
     1 + peak_weight * target; otherwise as joints_mse_loss."""
     pred = pred.float()
@@ -51,13 +56,13 @@ def joints_mse_weighted_loss(pred, target, target_weight=None,
         target_weight = target_weight.float()
         K = target_weight.shape[-1]
         se = se * _joint_weights(pred, target_weight)
-        denom = torch.clamp_min(target_weight.sum(), 1.0)
+        denom = count(target_weight.sum())
         per_px = pred.numel() / (pred.shape[0] * K)
         return 0.5 * se.sum() / (denom * per_px)
     return 0.5 * torch.mean(se)
 
 
-def coord_mse_loss(pred, target, visibility=None):
+def coord_mse_loss(pred, target, visibility=None, *, count=local_count):
     """Direct coordinate-regression loss (the DeepPose objective): squared
     error of normalized joint coordinates summed over x and y, averaged
     over the visible joints. pred/target (B, K, 2) in [0, 1];
@@ -65,5 +70,5 @@ def coord_mse_loss(pred, target, visibility=None):
     se = ((pred.float() - target.float()) ** 2).sum(-1)      # (B, K)
     if visibility is not None:
         m = (visibility > 0).float()
-        return (se * m).sum() / torch.clamp_min(m.sum(), 1.0)
+        return (se * m).sum() / count(m.sum())
     return se.mean()

@@ -26,6 +26,7 @@ from tpupose_torch.losses.bbox import ciou, kpts_to_box
 from tpupose_torch.losses.classify import (binary_cross_entropy_with_logits,
                                            varifocal_loss)
 from tpupose_torch.losses.keypoint import get_kpt_loss
+from tpupose_torch.losses.normalize import local_count
 
 
 class ComputeLoss:
@@ -33,8 +34,10 @@ class ComputeLoss:
                  strides: Sequence[int] = (8, 16, 32),
                  kpt_loss_type: str = "hybrid",
                  cls_weight: float = 1.0, kpt_weight: float = 10.0,
-                 vis_weight: float = 5.0, use_varifocal: bool = True):
+                 vis_weight: float = 5.0, use_varifocal: bool = True,
+                 count=local_count):
         self.K = num_keypoints
+        self.count = count          # the positives' normaliser
         self.nc = num_classes
         self.strides = tuple(strides)
         self.kpt_loss = get_kpt_loss(kpt_loss_type)
@@ -122,7 +125,7 @@ class ComputeLoss:
         for pred in preds:
             c, k, v, n = self._one_scale(pred, targets)
             tc, tk, tv, npos = tc + c, tk + k, tv + v, npos + n
-        denom = torch.clamp_min(npos, 1.0)
+        denom = self.count(npos)
         loss_cls = tc / denom * self.cls_weight
         loss_kpt = tk / denom * self.kpt_weight
         loss_vis = tv / denom * self.vis_weight

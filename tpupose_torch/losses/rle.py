@@ -16,6 +16,8 @@ import math
 import torch
 from torch import nn
 
+from tpupose_torch.losses.normalize import local_count
+
 
 class _Coupling(nn.Module):
     """One RealNVP affine coupling over 2D vectors: coordinate `keep`
@@ -70,10 +72,11 @@ class RealNVP(nn.Module):
 
 
 def rle_loss(mu, sigma, log_phi, target, visibility=None, *,
-             residual: bool = True, q: str = "laplace"):
+             residual: bool = True, q: str = "laplace", count=local_count):
     """RLE negative log-likelihood. mu, sigma, target (B, K, 2); log_phi
     (B, K), the flow log-density of the sigma-normalized error;
-    visibility (B, K) weights. `residual` adds the analytic Q term, q
+    visibility (B, K) weights, their sum normalised by `count`
+    (losses/normalize.py). `residual` adds the analytic Q term, q
     "laplace" (default) or "gaussian"."""
     sigma = sigma.float()
     error = (target.float() - mu.float()) / (sigma + 1e-9)
@@ -89,5 +92,5 @@ def rle_loss(mu, sigma, log_phi, target, visibility=None, *,
         nll = nll + q_nll.sum(-1)
     if visibility is not None:
         w = visibility.float()
-        return (nll * w).sum() / torch.clamp_min(w.sum(), 1.0)
+        return (nll * w).sum() / count(w.sum())
     return nll.mean()

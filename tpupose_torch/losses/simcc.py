@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from tpupose_torch.losses.normalize import local_count
+
 
 def gaussian_1d_targets(joints, visibility, bins_hw, sigma: float = 6.0):
     """1D Gaussian label distributions over the x and y bins.
@@ -37,9 +39,10 @@ def _log_softmax(z):
     return z - torch.log(torch.exp(z).sum(-1, keepdim=True))
 
 
-def simcc_kl_loss(preds, target, target_weight=None):
+def simcc_kl_loss(preds, target, target_weight=None, *, count=local_count):
     """preds (x_logits (B, K, Wb), y_logits (B, K, Hb)); target (tx, ty);
-    target_weight (B, K). A float32 scalar normalized by the weight sum."""
+    target_weight (B, K). A float32 scalar normalized by count(weight
+    sum) (losses/normalize.py)."""
     x_logits, y_logits = preds
     tx, ty = target
     ce = (-(tx.float() * _log_softmax(x_logits.float())).sum(-1)
@@ -47,4 +50,4 @@ def simcc_kl_loss(preds, target, target_weight=None):
     if target_weight is None:
         return ce.mean()
     w = target_weight.float()
-    return (ce * w).sum() / torch.clamp_min(w.sum(), 1.0)
+    return (ce * w).sum() / count(w.sum())

@@ -18,6 +18,7 @@ from tpupose_torch.losses.bbox import ciou, xywh2xyxy, xyxy2xywh
 from tpupose_torch.losses.classify import (binary_cross_entropy_with_logits,
                                            cross_entropy)
 from tpupose_torch.losses.keypoint import oks_loss
+from tpupose_torch.losses.normalize import local_count
 from tpupose_torch.models.yolo_head import dist2bbox, make_anchors
 
 
@@ -41,8 +42,10 @@ class v8DetectionLoss:
     def __init__(self, num_classes: int, reg_max: int = 16,
                  strides: Sequence[int] = (8, 16, 32),
                  box_weight: float = 7.5, cls_weight: float = 0.5,
-                 dfl_weight: float = 1.5, tal_topk: int = 10):
+                 dfl_weight: float = 1.5, tal_topk: int = 10,
+                 count=local_count):
         self.nc = num_classes
+        self.count = count          # the normaliser of the score / positives
         self.reg_max = reg_max
         self.strides = tuple(strides)
         self.box_w, self.cls_w, self.dfl_w = box_weight, cls_weight, dfl_weight
@@ -86,7 +89,7 @@ class v8DetectionLoss:
 
     def _det_losses(self, a):
         ts = a["target_scores"]
-        ts_sum = torch.clamp_min(ts.sum(), 1.0)
+        ts_sum = self.count(ts.sum())
         cl = binary_cross_entropy_with_logits(a["cls_logits"], ts)
         if a["sample_mask"] is not None:
             cl = cl * a["sample_mask"].to(torch.float32)[:, None, None]
@@ -150,7 +153,7 @@ class v8PoseLoss(v8DetectionLoss):
             .clamp_min(1e-3)
         fgf = a["fg"].to(torch.float32)
         kl = oks_loss(xy, gk_xy, gk_vis * fgf[..., None], area)
-        npos = torch.clamp_min(fgf.sum(), 1.0)
+        npos = self.count(fgf.sum())
         loss_kpt = (kl * fgf).sum() / npos
         vis = binary_cross_entropy_with_logits(kpt_raw[..., 2], gk_vis)
         loss_vis = (vis.mean(-1) * fgf).sum() / npos

@@ -1,8 +1,9 @@
 // The host-IO runtime of tpupose_torch (a copy of the JAX package's
-// tpupose/native/io.cc, reduced to what the COCO top-down data path
-// calls): threaded JPEG decode with libjpeg DCT-domain downscaling and a
-// bilinear 2x3 affine crop, on a std::thread pool, writing straight into
-// a caller-provided uint8 NHWC buffer. Loaded through ctypes by
+// tpupose/native/io.cc): threaded JPEG decode with libjpeg DCT-domain
+// downscaling, a bilinear 2x3 affine crop (COCO / MPII top-down) or a
+// bilinear stretch-resize (YOLO-format images), on a std::thread pool,
+// writing straight into a caller-provided uint8 NHWC buffer, and the
+// YOLO-pose label parser. Loaded through ctypes by
 // tpupose_torch/data/native_io.py, which builds it with this directory's
 // Makefile into build/tpupose_torch/native/.
 
@@ -30,6 +31,45 @@ struct ErrMgr {
 void err_exit(j_common_ptr cinfo) {
   ErrMgr* e = reinterpret_cast<ErrMgr*>(cinfo->err);
   longjmp(e->jb, 1);
+}
+
+// bilinear resize RGB u8 (src HxW -> dst)
+void resize_bilinear(const uint8_t* src, int sh, int sw, uint8_t* dst,
+                     int dh, int dw) {
+  const float sy = static_cast<float>(sh) / dh;
+  const float sx = static_cast<float>(sw) / dw;
+  for (int y = 0; y < dh; ++y) {
+    float fy = (y + 0.5f) * sy - 0.5f;
+    int y0 = fy < 0 ? 0 : static_cast<int>(fy);
+    if (y0 > sh - 2) y0 = sh - 2;
+    if (y0 < 0) y0 = 0;  // 1-pixel-tall sources: sh-2 is -1
+    float wy = fy - y0;
+    if (wy < 0) wy = 0;
+    if (wy > 1) wy = 1;  // upscaling: fy can pass sh-1 after the y0 clamp;
+                         // an unclamped weight goes negative (UB on the
+                         // uint8 cast) — clamp-to-edge instead
+    const int y1 = y0 + 1 <= sh - 1 ? y0 + 1 : y0;  // second tap in-bounds
+    const uint8_t* r0 = src + static_cast<size_t>(y0) * sw * 3;
+    const uint8_t* r1 = src + static_cast<size_t>(y1) * sw * 3;
+    uint8_t* out = dst + static_cast<size_t>(y) * dw * 3;
+    for (int x = 0; x < dw; ++x) {
+      float fx = (x + 0.5f) * sx - 0.5f;
+      int x0 = fx < 0 ? 0 : static_cast<int>(fx);
+      if (x0 > sw - 2) x0 = sw - 2;
+      if (x0 < 0) x0 = 0;  // 1-pixel-wide sources
+      float wx = fx - x0;
+      if (wx < 0) wx = 0;
+      if (wx > 1) wx = 1;
+      const int x1 = x0 + 1 <= sw - 1 ? x0 + 1 : x0;
+      const float w00 = (1 - wy) * (1 - wx), w01 = (1 - wy) * wx;
+      const float w10 = wy * (1 - wx), w11 = wy * wx;
+      for (int c = 0; c < 3; ++c) {
+        float v = w00 * r0[x0 * 3 + c] + w01 * r0[x1 * 3 + c] +
+                  w10 * r1[x0 * 3 + c] + w11 * r1[x1 * 3 + c];
+        out[x * 3 + c] = static_cast<uint8_t>(v + 0.5f);
+      }
+    }
+  }
 }
 
 // general 2x3 dst->src affine warp, bilinear, zero fill outside source
@@ -112,7 +152,7 @@ extern "C" {
 
 // ABI version marker (the library's file name also carries its source's
 // hash, so a stale build is never loaded).
-int tp_io_version() { return 3; }
+int tp_io_version() { return 4; }
 
 // Fused decode + affine crop: for each item, decode paths[i] (DCT-
 // prescaled to the crop's scale) and warp with the 2x3 dst->src matrix
@@ -171,6 +211,83 @@ int tp_decode_warp_batch(const char** paths, const float* mats, int n,
   return failures.load();
 }
 
+
+// Decode one JPEG to RGB and stretch-resize into out (out_h*out_w*3).
+// Uses libjpeg's DCT scaling (1/1..1/8) to decode near the target size
+// cheaply. Returns 0 on success.
+int tp_decode_jpeg_resize(const char* path, int out_h, int out_w,
+                          uint8_t* out) {
+  FILE* f = fopen(path, "rb");
+  if (!f) return 1;
+
+  jpeg_decompress_struct cinfo;
+  ErrMgr jerr;
+  cinfo.err = jpeg_std_error(&jerr.pub);
+  jerr.pub.error_exit = err_exit;
+  std::vector<uint8_t> decoded;
+  if (setjmp(jerr.jb)) {
+    jpeg_destroy_decompress(&cinfo);
+    fclose(f);
+    return 2;
+  }
+  jpeg_create_decompress(&cinfo);
+  jpeg_stdio_src(&cinfo, f);
+  jpeg_read_header(&cinfo, TRUE);
+  cinfo.out_color_space = JCS_RGB;
+  // DCT-domain downscale: pick the smallest scale that keeps both dims
+  // >= target (quality) — scale_num/8 for scale_num in 1..8
+  int num = 8;
+  while (num > 1 &&
+         (cinfo.image_width * (num - 1)) / 8 >= (unsigned)out_w &&
+         (cinfo.image_height * (num - 1)) / 8 >= (unsigned)out_h) {
+    --num;
+  }
+  cinfo.scale_num = num;
+  cinfo.scale_denom = 8;
+  jpeg_start_decompress(&cinfo);
+  const int sw = cinfo.output_width, sh = cinfo.output_height;
+  decoded.resize(static_cast<size_t>(sw) * sh * 3);
+  while (cinfo.output_scanline < cinfo.output_height) {
+    uint8_t* row = decoded.data() +
+                   static_cast<size_t>(cinfo.output_scanline) * sw * 3;
+    jpeg_read_scanlines(&cinfo, &row, 1);
+  }
+  jpeg_finish_decompress(&cinfo);
+  jpeg_destroy_decompress(&cinfo);
+  fclose(f);
+
+  if (sw == out_w && sh == out_h) {
+    std::memcpy(out, decoded.data(), static_cast<size_t>(out_w) * out_h * 3);
+  } else {
+    resize_bilinear(decoded.data(), sh, sw, out, out_h, out_w);
+  }
+  return 0;
+}
+
+// Batch decode on a thread pool. paths: array of C strings; out: NHWC
+// uint8 buffer of n*out_h*out_w*3. Returns count of failures.
+int tp_decode_jpeg_batch(const char** paths, int n, int out_h, int out_w,
+                         uint8_t* out, int n_threads) {
+  if (n_threads < 1) n_threads = 1;
+  std::atomic<int> next(0), failures(0);
+  const size_t stride = static_cast<size_t>(out_h) * out_w * 3;
+  auto work = [&]() {
+    for (;;) {
+      int i = next.fetch_add(1);
+      if (i >= n) return;
+      if (tp_decode_jpeg_resize(paths[i], out_h, out_w, out + stride * i)) {
+        failures.fetch_add(1);
+        std::memset(out + stride * i, 0, stride);
+      }
+    }
+  };
+  std::vector<std::thread> pool;
+  const int t = n_threads < n ? n_threads : n;
+  pool.reserve(t);
+  for (int i = 0; i < t; ++i) pool.emplace_back(work);
+  for (auto& th : pool) th.join();
+  return failures.load();
+}
 
 // Batched threaded DCT-prescaled decode into caller-owned buffers — the
 // decode half of the decode-once/warp-per-epoch cache (augmentation
@@ -247,6 +364,49 @@ int tp_warp_batch(const uint8_t** srcs, const int* ws, const int* hs,
   for (int i = 0; i < t; ++i) pool.emplace_back(work);
   for (auto& th : pool) th.join();
   return 0;
+}
+
+// Parse a YOLO-pose label txt: rows of `cols` floats. Returns row count,
+// or -1 on malformed rows / -2 missing file. Rows beyond max_rows are
+// skipped (counted).
+int tp_parse_yolo_label(const char* path, float* out, int max_rows,
+                        int cols) {
+  FILE* f = fopen(path, "r");
+  if (!f) return -2;
+  int rows = 0;
+  // 64 KiB line buffer: a 512-float row of full-precision decimals tops
+  // out near 12 KiB; a line longer than the buffer would split mid-number
+  // and misreport the file as malformed
+  static thread_local std::vector<char> linebuf(65536);
+  char* line = linebuf.data();
+  while (fgets(line, static_cast<int>(linebuf.size()), f)) {
+    char* p = line;
+    int got = 0;
+    float vals[512];
+    while (got < cols && got < 512) {
+      char* end;
+      float v = strtof(p, &end);
+      if (end == p) break;
+      vals[got++] = v;
+      p = end;
+    }
+    // skip blank lines
+    if (got == 0) continue;
+    // trailing garbage or wrong count -> malformed
+    char* q = p;
+    while (*q == ' ' || *q == '\t' || *q == '\n' || *q == '\r') ++q;
+    if (got != cols || *q != '\0') {
+      fclose(f);
+      return -1;
+    }
+    if (rows < max_rows) {
+      std::memcpy(out + static_cast<size_t>(rows) * cols, vals,
+                  sizeof(float) * cols);
+    }
+    ++rows;
+  }
+  fclose(f);
+  return rows;
 }
 
 }  // extern "C"

@@ -130,6 +130,17 @@ def check(err: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
+def op_or_body(op, body):
+    """What a kernel's wrapper calls: its torch.library op while
+    torch.export or torch.compile traces the caller, so the program
+    records the kernel as an op; otherwise the op's body itself. The
+    body is what the op runs, so an eager call launches the same kernel
+    and counts the same launch, without the op's dispatch, which costs
+    tens of microseconds of host time a call on an H100 (PERF.md)."""
+    tracing = torch.compiler.is_compiling() or torch.compiler.is_exporting()
+    return op if tracing else body
+
+
 def stream_of(t: torch.Tensor) -> int:
     """The current CUDA stream handle for tensor t's device, as an int.
     Makes t's device the current one first: the C entry points launch,

@@ -7,13 +7,17 @@ which replace the TPU kernel behind tpupose/ops/attention.py `_flash`
 (B, L, heads, 64) in that layout, read through their strides (a view cut
 from a qkv projection is taken as it is: unit stride on the head dim,
 the other strides multiples of 8 elements, 16-byte aligned), and returns
-a contiguous (B, L, heads, 64) bf16 tensor. Where autograd will need it
-(grad enabled and an input that requires grad), K8 also writes each
-row's log-sum-exp and the forward saves q, k, v, o and it; the backward
-is `flash_attention_backward` on those, i.e. K8b, and nothing else.
-Anything either kernel does not take raises ValueError; a CPU tensor
-raises too (ops/attention.fused_attention sends CPU tensors to the plain
-version and never calls this). `flash_attention.launches` and
+a contiguous (B, L, heads, 64) bf16 tensor. K8 runs as the torch.library
+op `tpupose_torch::flash_attention` (`flash_attention_op`) where a
+program is traced, so the program records it, and as that op's body
+straight in an eager call (_build.op_or_body); on a CPU tensor the op runs the plain
+version (ops/attention.fused_attention sends CPU tensors to its own plain
+version and never calls this). Where autograd will need it (grad enabled
+and an input that requires grad), K8 also writes each row's log-sum-exp
+and the forward saves q, k, v, o and it; the backward is
+`flash_attention_backward` on those, i.e. K8b (a ctypes call: no
+training program is exported), and nothing else. Anything either kernel
+does not take raises ValueError. `flash_attention.launches` and
 `flash_attention_backward.launches` count launches (K8b's two kernels,
 dq with the Delta preprocess, then dkv, count as one). K8b writes its
 gradients through ctypes into plain tensors, which carry no graph, so
@@ -24,11 +28,14 @@ backward has no derivative rule either).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from tpupose_torch.ops import _build
 
 HEAD_DIM = 64
+_LOG2E = 1.0 / math.log(2.0)
 
 
 def _check(q, k, v, what="flash_attention"):
@@ -120,12 +127,46 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     return dq, dk, dv
 
 
+def flash_attention_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: float, with_lse: bool
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The body of K8's torch.library op `flash_attention_op`, (o, lse):
+    CUDA tensors launch the kernel
+    (lse its float32 (B, heads, L) log-sum-exp in the log2 domain with the
+    scale folded in, or an empty (0,) tensor without `with_lse`) or
+    raise; CPU tensors take the plain version in float32, o in q's dtype.
+    `flash_attention.launches` rises at each launch."""
+    if q.device.type == "cpu":
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+        o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1),
+                         v.float()).to(q.dtype).contiguous()
+        lse = (torch.logsumexp(s, dim=-1) * _LOG2E if with_lse
+               else s.new_empty((0,)))
+        return o, lse
+    _check(q, k, v)
+    o, lse = _launch(q, k, v, scale, with_lse)
+    return o, (lse if with_lse else
+               torch.empty((0,), dtype=torch.float32, device=q.device))
+
+
+flash_attention_op = torch.library.custom_op(
+    "tpupose_torch::flash_attention", flash_attention_impl, mutates_args=())
+
+
+@flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, scale, with_lse):
+    B, L, H, D = q.shape
+    lse_shape = (B, H, L) if with_lse else (0,)
+    return (q.new_empty((B, L, H, D)),
+            q.new_empty(lse_shape, dtype=torch.float32))
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, scale, for_grad):
-        o, lse = _launch(q, k, v, scale, for_grad)
-        if for_grad:
-            ctx.save_for_backward(q, k, v, o, lse)
+    def forward(ctx, q, k, v, scale):
+        o, lse = _build.op_or_body(flash_attention_op,
+                                   flash_attention_impl)(q, k, v, scale, True)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.scale = scale
         return o
 
@@ -135,17 +176,20 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_backward(q, k, v, o, lse, grad_out,
                                               ctx.scale)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
     """softmax(scale * q k^T) v over (B, L, heads, 64) bf16 CUDA tensors,
-    by the hand-written kernel; differentiable through K8b."""
-    _check(q, k, v)
-    for_grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                            or v.requires_grad)
-    return _FlashAttention.apply(q, k, v, float(scale), for_grad)
+    by the hand-written kernel, through the op `flash_attention_op` where
+    a program is traced (_build.op_or_body); differentiable through K8b
+    where autograd needs it."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, float(scale))
+    return _build.op_or_body(flash_attention_op, flash_attention_impl)(
+        q, k, v, float(scale), False)[0]
 
 
 flash_attention.launches = 0

@@ -5,8 +5,11 @@
     constant shift under the log and cancels in the derivatives, as the
     kernel drops it;
   - `dark_decode`: the wrapper of csrc/dark_decode.cu, which replaces
-    pallas_decode.py `_decode_kernel`. CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise.
+    pallas_decode.py `_decode_kernel`, through the torch.library op
+    `tpupose_torch::dark_decode` (`dark_decode_op`) where a program is
+    traced, its body straight in an eager call (_build.op_or_body). CPU
+    tensors take the plain version; CUDA tensors launch
+    the kernel or raise.
     `dark_decode.launches` counts launches.
 
 `decode_heatmaps(method="dark")` (tpupose_torch/ops/decode.py) sends CUDA
@@ -30,12 +33,14 @@ def dark_decode_reference(heatmaps: torch.Tensor, blur_kernel: int = 11,
     return coords, scores
 
 
-def dark_decode(heatmaps: torch.Tensor, blur_kernel: int = 11,
-                sigma: float = 2.0):
-    """(B, K, H, W) -> coords (B, K, 2), scores (B, K). CPU: plain
-    version; CUDA: the fused kernel (one warp per map)."""
+def dark_decode_impl(heatmaps: torch.Tensor, blur_kernel: int,
+                     sigma: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The body of K4's torch.library op `dark_decode_op`: a CPU tensor takes the plain version, a
+    CUDA tensor the fused kernel (one warp per map) or raises;
+    `dark_decode.launches` rises at each launch."""
     if heatmaps.device.type == "cpu":
-        return dark_decode_reference(heatmaps, blur_kernel, sigma)
+        c, s = dark_decode_reference(heatmaps, blur_kernel, sigma)
+        return c.contiguous(), s.contiguous()
     if heatmaps.device.type != "cuda":
         raise RuntimeError(f"dark_decode: unsupported device "
                            f"{heatmaps.device}")
@@ -58,6 +63,26 @@ def dark_decode(heatmaps: torch.Tensor, blur_kernel: int = 11,
                     _build.stream_of(hm)), "dark_decode")
     dark_decode.launches += 1
     return coords, scores
+
+
+dark_decode_op = torch.library.custom_op(
+    "tpupose_torch::dark_decode", dark_decode_impl, mutates_args=())
+
+
+@dark_decode_op.register_fake
+def _dark_decode_fake(heatmaps, blur_kernel, sigma):
+    B, K = heatmaps.shape[:2]
+    return (heatmaps.new_empty((B, K, 2), dtype=torch.float32),
+            heatmaps.new_empty((B, K), dtype=torch.float32))
+
+
+def dark_decode(heatmaps: torch.Tensor, blur_kernel: int = 11,
+                sigma: float = 2.0):
+    """(B, K, H, W) -> coords (B, K, 2), scores (B, K). CPU: plain
+    version; CUDA: the fused kernel; through the op `dark_decode_op`
+    where a program is traced (_build.op_or_body)."""
+    return _build.op_or_body(dark_decode_op, dark_decode_impl)(
+        heatmaps, int(blur_kernel), float(sigma))
 
 
 dark_decode.launches = 0

@@ -11,8 +11,12 @@
   - `layer1`: the wrapper of csrc/bottleneck.cu (wgmma products fed by
     TMA, clusters of two blocks sharing each weight tile), which replaces
     pallas_layer1.py `_layer1_kernel` with three launches of one fused
-    bottleneck kernel. CPU tensors take the plain version; CUDA tensors
-    launch the kernel or raise. `layer1.launches` counts launches.
+    bottleneck kernel, through the torch.library op
+    `tpupose_torch::layer1` (`layer1_op`, weights flattened in
+    `flatten_layer1`'s order) where a program is traced, its body
+    straight in an eager call (_build.op_or_body). CPU tensors take the
+    plain version; CUDA tensors launch the kernel or raise.
+    `layer1.launches` counts launches.
     `check_tiles` holds a shape to the kernel's 16 x 8 tiles and
     `_smem_bytes` mirrors its shared memory.
 """
@@ -143,18 +147,66 @@ def launch_bottleneck(x: torch.Tensor, w: dict, variant: int) -> torch.Tensor:
     return out
 
 
-def layer1(x: torch.Tensor, weights: list) -> torch.Tensor:
-    """(B, H, W, 64) -> (B, H, W, 256). CPU: plain version; CUDA: three
-    launches of the fused bottleneck kernel (bf16; H a multiple of 16 and W
-    of 8, an even count of 16 x 8 tiles per image)."""
+# the order in which `layer1` hands the three folded blocks to the op:
+# each block's tensors under these keys, block 0 with its downsample
+LAYER1_KEYS = ("w1", "b1", "w2", "b2", "w3", "b3")
+
+
+def flatten_layer1(weights: list) -> list:
+    """[block0, block1, block2] dicts -> the op's flat tensor list: each
+    block's LAYER1_KEYS in order, block 0's followed by its "wds"."""
+    flat = []
+    for i, w in enumerate(weights):
+        flat += [w[k] for k in LAYER1_KEYS] + ([w["wds"]] if i == 0 else [])
+    return flat
+
+
+def unflatten_layer1(flat) -> list:
+    """Inverse of flatten_layer1."""
+    n = len(LAYER1_KEYS)
+    if len(flat) != 3 * n + 1:
+        raise ValueError(f"layer1: expected {3 * n + 1} weight tensors "
+                         f"(three folded blocks), got {len(flat)}")
+    out = [dict(zip(LAYER1_KEYS, flat[:n]), wds=flat[n])]
+    for i in range(2):
+        out.append(dict(zip(LAYER1_KEYS, flat[n + 1 + i * n:
+                                             n + 1 + (i + 1) * n])))
+    return out
+
+
+def layer1_impl(x: torch.Tensor,
+                weights: list[torch.Tensor]) -> torch.Tensor:
+    """The body of K2's torch.library op `layer1_op`, the weights flat (flatten_layer1's
+    order): a CPU tensor takes the plain version, a CUDA tensor three
+    launches of the fused bottleneck kernel or raises;
+    `layer1.launches` rises at each launch."""
+    blocks = unflatten_layer1(weights)
     if x.device.type == "cpu":
-        return layer1_reference(x, weights)
+        return layer1_reference(x, blocks)
     if x.device.type != "cuda":
         raise RuntimeError(f"layer1: unsupported device {x.device}")
-    for i, w in enumerate(weights):
+    for i, w in enumerate(blocks):
         x = launch_bottleneck(x, w, 0 if i == 0 else 1)
         layer1.launches += 1
     return x
+
+
+layer1_op = torch.library.custom_op(
+    "tpupose_torch::layer1", layer1_impl, mutates_args=())
+
+
+@layer1_op.register_fake
+def _layer1_fake(x, weights):
+    return x.new_empty((*x.shape[:3], 256))
+
+
+def layer1(x: torch.Tensor, weights: list) -> torch.Tensor:
+    """(B, H, W, 64) -> (B, H, W, 256). CPU: plain version; CUDA: three
+    launches of the fused bottleneck kernel (bf16; H a multiple of 16 and W
+    of 8, an even count of 16 x 8 tiles per image); through the op
+    `layer1_op` where a program is traced (_build.op_or_body)."""
+    return _build.op_or_body(layer1_op, layer1_impl)(
+        x, flatten_layer1(weights))
 
 
 layer1.launches = 0

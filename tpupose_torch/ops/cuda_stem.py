@@ -12,9 +12,11 @@ composed R50 serving forward (counterpart of tpupose/ops/pallas_stem.py).
   - `stem_pool`: the wrapper of the hand-written kernel in
     csrc/stem.cu (wgmma products per conv row, the pool in registers, a
     producer warp feeding a ring of input rows), which replaces
-    pallas_stem.py `_stem_kernel`. A CPU tensor takes the plain version;
-    a CUDA tensor launches the kernel or raises. `stem_pool.launches`
-    counts launches; `stem_tile` is the kernel's chooser of its wgmma N
+    pallas_stem.py `_stem_kernel`, through the torch.library op
+    `tpupose_torch::stem_pool` (`stem_pool_op`) where a program is
+    traced, its body straight in an eager call (_build.op_or_body). A
+    CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel or raises. `stem_pool.launches` counts launches; `stem_tile` is the kernel's chooser of its wgmma N
     and work units, `_smem_bytes` mirrors its shared memory;
   - `is_fast_r50` / `fold_fast_r50`: which models the composed forward
     covers (a SimpleBaseline-R50 computing in bf16, float32 masters or
@@ -113,18 +115,20 @@ def _smem_bytes(nt: int) -> int:
             + 2 * ((nt - 1) // 2) * 128 + 2 * RING_ROWS * 8 + 128)
 
 
-def stem_pool(x: torch.Tensor, weights: dict) -> torch.Tensor:
-    """(B, H, W, 3) -> (B, Hp, Wp, 64). CPU: plain version; CUDA: the
-    csrc/stem.cu kernel (bf16 only)."""
+def stem_pool_impl(x: torch.Tensor, w: torch.Tensor,
+                   bias: torch.Tensor) -> torch.Tensor:
+    """The body of K1's torch.library op `stem_pool_op` (what an exported
+    program records): a CPU
+    tensor takes the plain version, a CUDA tensor the csrc/stem.cu kernel
+    (bf16 only) or raises. `stem_pool.launches` rises here, at each
+    launch, not where a program is traced."""
     if x.device.type == "cpu":
-        return stem_pool_reference(x, weights)
+        return stem_pool_reference(x, {"w": w, "bias": bias})
     if x.device.type != "cuda":
         raise RuntimeError(f"stem_pool: unsupported device {x.device}")
     if x.dtype != torch.bfloat16 or x.dim() != 4 or x.shape[-1] != 3:
         raise ValueError(f"stem_pool: expected (B, H, W, 3) bfloat16, got "
                          f"{tuple(x.shape)} {x.dtype}")
-    w = weights["w"]
-    bias = weights["bias"]
     if w.dtype != torch.bfloat16 or tuple(w.shape) != (7, 7, 3, 64) \
             or bias.dtype != torch.float32 or w.device != x.device:
         raise ValueError("stem_pool: weights must come from "
@@ -145,6 +149,24 @@ def stem_pool(x: torch.Tensor, weights: dict) -> torch.Tensor:
                     nt, _build.stream_of(x)), "stem_pool")
     stem_pool.launches += 1
     return out
+
+
+stem_pool_op = torch.library.custom_op(
+    "tpupose_torch::stem_pool", stem_pool_impl, mutates_args=())
+
+
+@stem_pool_op.register_fake
+def _stem_pool_fake(x, w, bias):
+    return x.new_empty((x.shape[0], _pooled(x.shape[1]), _pooled(x.shape[2]),
+                        64))
+
+
+def stem_pool(x: torch.Tensor, weights: dict) -> torch.Tensor:
+    """(B, H, W, 3) -> (B, Hp, Wp, 64). CPU: plain version; CUDA: the
+    csrc/stem.cu kernel (bf16 only); through the op `stem_pool_op` where
+    a program is traced (_build.op_or_body)."""
+    return _build.op_or_body(stem_pool_op, stem_pool_impl)(
+        x, weights["w"], weights["bias"])
 
 
 stem_pool.launches = 0
