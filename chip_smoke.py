@@ -162,11 +162,10 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
      against the float32 forward (max rel 0.15, mean rel 0.02), its card
      output equal to its own CPU output (exact int32 products); flip
      predict img/s of the Int8Engine and PTQ routes beside bf16;
-  14. SimpleBaseline-R50 256x192 with K=3 overfit on 8 synthetic crops:
-     the recipe's point (Adam 3e-3 to a loss below 1e-3) printed, with
-     every route's distance from the bf16 and float32 forwards and the
-     maps of the joints a route moves (see int8_metric_phase); then Adam
-     1e-3 past 1e-3 (printed there too) to 1e-4, the bf16 forward's
+  14. SimpleBaseline-R50 256x192 with K=3 overfit on 8 synthetic crops,
+     Adam 1e-3: at its loss < 1e-3 crossing every route's distance from
+     the bf16 and float32 forwards and the maps of the joints a route
+     moves printed (see int8_metric_phase); then to 1e-4, the bf16 forward's
      PCK@0.2 1.0, and the bf16 kernel route (K1-K4), CudaServingEngine
      (K5/K6), the Int8Engine and the PTQ intercept each within 0.005 PCK
      and 1 crop px mean keypoint distance of the bf16 forward;
@@ -179,7 +178,7 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
   16. (after 15, in a fourth child process; `python3 chip_smoke.py
      --phase16 <out.json>` runs it alone) DINOv3Pose training and
      evaluation on dinov3_vitpose.yaml (ViT-B/16 640x640, B=16, bf16
-     autocast, AdamW) cut to 2 of 100 epochs on 64 train and 16 valid
+     autocast, AdamW) cut to 2 of 100 epochs on 32 train and 8 valid
      synthetic_yolo samples (the Builder makes 128 / 32): 16a frozen
      and 16b
      unfrozen through Trainer, every step exactly 12 K8 and 0 / 12 K8b
@@ -235,9 +234,9 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
      tpupose_torch.cli.tools average-ckpts` over 18b's checkpoints, the
      mean loaded by restore_for_eval and predicting on K1-K4 (2/6/2/1
      launches a flip batch); 18d Trainer.evaluate_detections on a seeded
-     COCO-format set of 128 JPEGs and a seeded detection JSON (each GT
+     COCO-format set of 64 JPEGs and a seeded detection JSON (each GT
      box jittered, a false positive and a below-threshold detection an
-     image; ~310 detections, 5 batches and a tail), after a one-batch
+     image; ~155 detections, 2 batches and a tail), after a one-batch
      warm-up: exactly 2 K1, 6 K2, 2 K3 and 1 K4 launches per det-eval
      batch; against the autocast plain route on the same crops every
      joint's score within 0.06 of the largest, the median joint within 1
@@ -273,6 +272,19 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
      no other kernel; one DetectHead decode (80 classes, reg_max 16, the
      three levels of 640x640) on the card against the CPU in float32
      (within 1e-3); the phase's seconds;
+  21. (in a seventh child process, `python3 chip_smoke.py --phase21
+     <out.json>` runs it alone) the tensor-parallel 'model' axis: two
+     ranks at data 1 x model 2 (gloo, both on cuda:0, on one card; NCCL,
+     one rank a card, on two or more; started as `--phase21-rank`)
+     against a model = 1 process in a one-rank group, each held against
+     a higher-precision run on the same inputs (P21_*): 2 SGD steps of
+     SimpleBaseline-R50 256x192 float32 at B=8 with device affine
+     (exactly 2 K7 launches a rank) and of ViTPose-S bf16 (exactly 24 K8
+     and 24 K8b), on seeded noise pixels, the loss, every gathered
+     gradient, updated value and statistic; the R50's evaluate() on the
+     gathered model, 2 flip batches of 8 (exactly 4/12/4/2 K1-K4, the
+     metrics model = 1's); step ms, the collectives a step, the phase's
+     seconds;
   9. device times under torch.profiler, last: K8, its plain version and
      SDPA at both shapes (their `ms`, `plain_ms`, `library_ms`: a K8
      launch is shorter than its wrapper's Python, so CUDA events around
@@ -288,7 +300,7 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
      {"ok": true, "device": {...}}.
 
 Phases run in the order 1-5, 7, 3d, 3e, 4c, 8, 10, 11, 12-14, 15, 16, 17,
-18, 19, 9, 6. Exits
+18, 19, 20, 21, 9, 6. Exits
 non-zero without printing a result where CUDA is unavailable. Needs one
 card; imports nothing of JAX. Writes only under build/ of the checkout
 (the kernels, the native host-IO library, the phase-7, phase-10,
@@ -1904,10 +1916,12 @@ def int8_metric_phase(results):
     peak: several joints have two near-equal maxima (second-peak ratio
     0.85-0.98), where the ~2% map error of int8 (the same in the float32
     simulation of PTQ's scheme as in the routes) moves a joint by tens of
-    px. That point is printed with its witness, ungated. The gate is on a
-    model trained past it, from the same init, to 1e-4, the recipe's
-    factor below the plateau, at Adam 1e-3, where the maps peak; its
-    1e-3 crossing is printed too."""
+    px. The gate is on a model trained past that point, to 1e-4, the
+    recipe's factor below the plateau, at Adam 1e-3, where the maps peak;
+    its 1e-3 crossing is printed with its witness, ungated. (Depth cut
+    for the smoke's time limit: the recipe's own run, Adam 3e-3 to 1e-3,
+    about 2650 steps and 120-130 s, printed the same kind of point and
+    is no longer run.)"""
     from tpupose_torch.data.synthetic import SyntheticTopDownDataset
 
     t_phase = time.perf_counter()
@@ -1931,12 +1945,6 @@ def int8_metric_phase(results):
         readings[label] = dict(steps=n, loss=loss, routes=rows,
                                witness=witness)
         return rows
-
-    for n, loss, model in _fit_r50_k3(batch, 3e-3, 1e-3):
-        pass
-    read("recipe (Adam 3e-3 to loss < 1e-3, printed)", n, loss, model)
-    del model
-    torch.cuda.empty_cache()
 
     crossed = False
     for n, loss, model in _fit_r50_k3(batch, 1e-3, 1e-4):
@@ -2350,9 +2358,9 @@ DINOV3_POSE_V8_VITB = {
     "lr_scheduler": {"name": "cosine"},
 }
 DINO_TRAIN_DIR = ROOT / "build" / "chip_smoke_dino_train"
-# depth cut: 64 train and 16 valid samples of the synthetic_yolo set (the
-# Builder's 128 / 32; its host build is ~0.6 s a sample at 640)
-DINO_SAMPLES = {"train": 64, "valid": 16}
+# depth cut: 32 train and 8 valid samples of the synthetic_yolo set (the
+# Builder's 128 / 32; its host build is ~0.6-0.8 s a sample at 640)
+DINO_SAMPLES = {"train": 32, "valid": 8}
 
 
 def _dino_trainer(base: dict, over: dict, datasets: dict):
@@ -2777,8 +2785,9 @@ BOTTOM_UP_W32 = {
 }
 FAMILIES_DIR = ROOT / "build" / "chip_smoke_families"
 # the synthetic_yolo set's host build is ~2.5 s a sample at 512 with 30
-# instances: the bottom-up run takes 16 train and 8 valid samples of it
-BU_SAMPLES = {"train": 16, "valid": 8}
+# instances: the bottom-up run takes 16 train and 4 valid samples of it
+# (4 valid, not 8: a depth cut for the smoke's time limit)
+BU_SAMPLES = {"train": 16, "valid": 4}
 
 
 _FAMILY_DATA: dict = {}
@@ -3374,7 +3383,9 @@ def _p18_detections(root: Path, seed: int = 18) -> Path:
     return path
 
 
-P18_IMAGES = 128          # ~310 detections kept: 5 batches of 64 and a tail
+# depth cut for the smoke's time limit: 64 images (not 128), ~155
+# detections kept: 2 batches of 64 and a tail
+P18_IMAGES = 64
 P18_SCORE_REL = 0.06      # phase 13's bound on bf16 heatmaps, max-relative
 P18_MEDIAN_PX = 1.0       # crop px (a quarter of a heatmap px)
 
@@ -4723,6 +4734,494 @@ def phase20_main(out_path: Path) -> int:
     return 0
 
 
+P21_DIR = ROOT / "build" / "chip_smoke_phase21"
+# 21: the tensor-parallel 'model' axis. Two ranks at data 1 x model 2
+# (gloo, both on cuda:0, where the machine has one card; NCCL, one rank a
+# card, where it has two or more) against one process at model = 1 on
+# cuda:0 in a one-rank group of the same backend (the same DDP and
+# SyncBatchNorm2d arithmetic, the model unsharded), the same seed and
+# batches, each held against a run at higher precision on the same
+# inputs: R50 float32 (TF32 off) against float64, ViTPose-S bf16 autocast
+# against float32 with plain attention. Plain SGD (momentum 0), its update
+# proportional to the gradient. A tensor (each parameter's gathered
+# gradient at both steps, each updated value, each BatchNorm statistic)
+# and the loss pass when model = 2's distance from the higher-precision
+# run is within P21_FLOOR_X times model = 1's own (times the larger of
+# it and the spread of two model = 1 runs, for ViTPose-S), or within
+# P21_REL of the tensor's largest magnitude plus P21_ABS (1e-5 relative
+# for a loss). model = 2 held at P21_REL against model = 1 directly (the
+# `direct` reading, reported only) is far over on the R50's early
+# tensors: at random init a float32 gradient through 50 BatchNorms is
+# determined only to a few percent of its largest element (the
+# `one_off_hi_of_max` reading; a convolution's weight gradient sums a
+# zero-mean BatchNorm gradient), and any change of summation order, such
+# as two half-width convolutions, moves it that far.
+# The gate's power is shown where every run starts from the same
+# parameters, the first step: a scaled gradient (2x, 0.5x) must be
+# refused, and for the R50 so must the parameters before the update (the
+# update unseen), each by the gate and by at least P21_REFUSE_SHARE of the
+# sharded weights one by one (where tensor parallelism acts; a
+# BatchNorm's cancelling gradient is determined in float32 no better
+# than its size, and no bound can see its scale). ViTPose-S's floor is
+# relative only (one bf16 step of the tensor's largest magnitude): its
+# layer scales (1e-5) leave the blocks' gradients below any absolute
+# floor.
+P21_FLOOR_X = 4.0
+P21_REFUSE_SHARE = 0.9
+P21_REL = 1e-4
+P21_ABS = 1e-6
+P21_LOSS_REL = 1e-5
+P21_BF16_STEP = 2.0 ** -8
+P21_R50 = {"data.device_affine": "true", "train.batch_size": "8",
+           "train.mixed_precision": "false", "train.epochs": "1",
+           "train.warmup_epochs": "0", "data.num_workers": "0",
+           "optimizer.name": "sgd", "optimizer.momentum": "0",
+           "optimizer.lr": "0.1", "optimizer.head_lr": "0.1",
+           "lr_scheduler.name": "constant"}
+P21_VIT = {"train.batch_size": "8", "train.epochs": "1",
+           "train.warmup_epochs": "0", "data.num_workers": "0",
+           "optimizer.name": "sgd", "optimizer.momentum": "0",
+           "optimizer.lr": "0.1", "optimizer.head_lr": "0.1",
+           "lr_scheduler.name": "constant"}
+
+
+def _p21_trainer(yaml_name: str, over: dict, model: int, label: str):
+    from tpupose_torch.engine.trainer import Trainer
+
+    over = dict(over, **{"mesh.model": str(model),
+                         "train.output_dir": str(P21_DIR / label)})
+    return Trainer(_p20_cfg(yaml_name, over), device="cuda")
+
+
+@contextlib.contextmanager
+def _p21_collectives(counts: dict):
+    """Count the tensor-parallel layers' all-gathers (forward) and
+    all-reduces (the input gradient's, backward) while the block runs."""
+    from tpupose_torch.parallel import tensor_parallel as tpm
+
+    gather, reduce_ = tpm._GatherFromModel.forward, tpm._CopyToModel.backward
+
+    def counted_gather(ctx, *a):
+        counts["all_gather"] = counts.get("all_gather", 0) + 1
+        return gather(ctx, *a)
+
+    def counted_reduce(ctx, *a):
+        counts["all_reduce"] = counts.get("all_reduce", 0) + 1
+        return reduce_(ctx, *a)
+
+    tpm._GatherFromModel.forward = staticmethod(counted_gather)
+    tpm._CopyToModel.backward = staticmethod(counted_reduce)
+    try:
+        yield counts
+    finally:
+        tpm._GatherFromModel.forward = staticmethod(gather)
+        tpm._CopyToModel.backward = staticmethod(reduce_)
+
+
+def _p21_train(yaml_name: str, over: dict, model: int, label: str,
+               steps: int = 2, precision: str = "") -> dict:
+    """`steps` steps of the Trainer at this model axis on the loader's
+    joints and seeded noise pixels (the synthetic crops are black but
+    for a few blobs: most BatchNorm channels then see near-constant
+    inputs and a float32 gradient is ill-conditioned, see
+    tests/test_torch_train.py's _batch): each step's gathered gradients
+    as the update takes them (CPU), losses, step ms without the
+    recording, kernel launches, tensor-parallel collectives, and the
+    full state after (CPU). `precision` "float64" runs the model in
+    float64, "float32" in float32 with plain attention (the higher-
+    precision runs, without a group)."""
+    from tpupose_torch.parallel.tensor_parallel import (full_state_dict,
+                                                        full_tensor,
+                                                        shard_of)
+
+    if precision:
+        over = dict(over, **{"train.mixed_precision": "false"})
+    tr = _p21_trainer(yaml_name, over, model, label)
+    if precision == "float64":
+        tr.model.double()
+        tr.model.compute_dtype = tr.model.param_dtype = torch.float64
+    if precision == "float32":
+        for m in tr.model.modules():
+            if hasattr(m, "impl"):
+                m.impl = "plain"
+    init = None
+    if model == 1:
+        init = {k: v.detach().float().cpu()
+                for k, v in tr.model.state_dict().items()
+                if v.is_floating_point()}
+    opt, grads, rec_ms = tr.state.optimizer, [], []
+    step = opt.step
+
+    def recording():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads.append([full_tensor(p.grad, shard_of(p)).float().cpu()
+                      for p in tr.model.parameters()])
+        rec_ms.append(1e3 * (time.perf_counter() - t0))
+        return step()
+
+    opt.step = recording
+    batches = iter(tr._prefetched(tr.train_loader))
+    losses, ms, coll, states = [], [], {}, []
+    _p19_reset()
+    with _p21_collectives(coll):
+        for i in range(steps):
+            db = next(batches)
+            g = torch.Generator(device="cuda").manual_seed(2100 + i)
+            db["images"] = torch.randint(
+                0, 256, tuple(db["images"].shape), generator=g,
+                device="cuda", dtype=torch.uint8)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = tr.train_step(tr.state, db)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0) - rec_ms[i])
+            losses.append(float(m["loss"]))
+            states.append({k: v.detach().float().cpu() for k, v in
+                           full_state_dict(tr.model).items()
+                           if v.is_floating_point()})
+    counts = _p19_counts()
+    opt.step = step
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"phase 21 {label}: losses {losses}")
+    sharded = [n for n, p in tr.model.named_parameters()
+               if shard_of(p) is not None]
+    names = [n for n, _ in tr.model.named_parameters()]
+    del tr
+    torch.cuda.empty_cache()
+    return {"loss": losses, "ms": ms, "grads": grads, "states": states,
+            "state": states[-1], "init": init, "names": names, "sharded": sharded,
+            "counts": counts,
+            "collectives": {k: v / steps for k, v in coll.items()}}
+
+
+def _p21_evaluate(model: int) -> dict:
+    """Trainer.evaluate() of the R50 (bf16 autocast: the K1-K4 route, on
+    the gathered model at model > 1) on 16 synthetic images, 2 flip-test
+    batches of 8, before any step; its metrics and launches."""
+    from tpupose_torch.data.synthetic import SyntheticTopDownDataset
+
+    over = dict(P21_R50, **{"train.mixed_precision": "true",
+                            "eval.batch_size": "8"})
+    tr = _p21_trainer("simple_baseline.yaml", over, model, "eval")
+    tr.valid_ds = SyntheticTopDownDataset(16, (H, W), (64, 48), K, seed=1)
+    tr.valid_loader = tr.builder.dataloader(tr.valid_ds, "valid")
+    _p19_reset()
+    t0 = time.perf_counter()
+    metrics = tr.evaluate()
+    sec = time.perf_counter() - t0
+    counts = _p19_counts()
+    del tr
+    torch.cuda.empty_cache()
+    return {"metrics": metrics, "counts": counts, "seconds": sec}
+
+
+def _p21_drive(model: int, vit_runs: int = 1) -> dict:
+    out = {"r50": _p21_train("simple_baseline.yaml", P21_R50, model, "r50"),
+           "eval": _p21_evaluate(model)}
+    for i in range(vit_runs):
+        out[f"vit{i}"] = _p21_train("vitpose_s.yaml", P21_VIT, model,
+                                    f"vit{i}")
+    return out
+
+
+def _p21_group(backend: str, rank: int, world: int, store: Path):
+    import datetime
+
+    import torch.distributed as dist
+
+    dist.init_process_group(backend, store=dist.FileStore(str(store), world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+
+
+def phase21_rank_main(rank: int, world: int, backend: str) -> int:
+    """One rank of phase 21's model = 2 run (a process phase21_main
+    starts): drives _p21_drive and writes its readings under P21_DIR
+    (rank 0 every tensor; rank 1 each tensor's sum, to show both ranks
+    hold the same model)."""
+    import torch.distributed as dist
+
+    from tpupose_torch.ops import _build
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    _build.build_all()
+    _p21_group(backend, rank, world, P21_DIR / "store_tp")
+    try:
+        res = _p21_drive(2)
+    finally:
+        dist.destroy_process_group()
+    if rank:
+        for run in ("r50", "vit0"):
+            r = res[run]
+            r["sums"] = {k: float(v.double().sum())
+                         for k, v in r.pop("state").items()}
+            r.pop("grads"), r.pop("states")
+    torch.save(res, P21_DIR / f"rank{rank}.pt")
+    return 0
+
+
+def _p21_hold(tp: list, one: list, hi: list, extra: list | None = None,
+              rel: float = P21_REL, abs_: float = P21_ABS,
+              sharded: list | None = None) -> dict:
+    """model = 2's tensors `tp` against the higher-precision run's `hi`,
+    each within the larger of P21_FLOOR_X times model = 1's distance
+    from `hi` (and `extra`, a further spread, where given) and rel of the
+    tensor's largest magnitude plus abs_: the worst ratio to its bound,
+    its index, the tensors over their bound, the same ratio for 2x and
+    0.5x model = 1's tensors (which the gate must refuse), and the
+    bounds."""
+    bounds = []
+    for i, (o, h) in enumerate(zip(one, hi)):
+        floor = float((o - h).abs().max())
+        if extra is not None:
+            floor = max(floor, extra[i])
+        bounds.append(max(P21_FLOOR_X * floor,
+                          rel * float(h.abs().max()) + abs_))
+
+    def ratios(ts):
+        return [float((t - h).abs().max()) / b
+                for t, h, b in zip(ts, hi, bounds)]
+
+    r = ratios(tp)
+    k = int(np.argmax(r))
+    err_one = np.array([float((o - h).abs().max()) / max(
+        float(h.abs().max()), 1e-30) for o, h in zip(one, hi)])
+    out = {"worst": r[k], "at": k, "over": int(sum(v > 1.0 for v in r)),
+           "one_off_hi_of_max": {q: float(np.quantile(err_one, f)) for q, f
+                                 in (("median", 0.5), ("p90", 0.9),
+                                     ("max", 1.0))},
+           "bounds": bounds}
+    for x in (2.0, 0.5):
+        rx = np.array(ratios([x * o for o in one]))
+        out[f"x{x}"] = {"max": float(rx.max()),
+                        "share_refused": float(np.mean(rx > 1.0))}
+        if sharded is not None:
+            out[f"x{x}"]["sharded_refused"] = float(np.mean(rx[sharded]
+                                                            > 1.0))
+    return out
+
+
+def _p21_gate(label: str, tp: dict, one: dict, hi: dict,
+              spread: dict | None = None, rel: float = P21_REL,
+              abs_: float = P21_ABS, unmoved: bool = True) -> dict:
+    """The comparison of a run's losses, gradients, updated parameters
+    and BatchNorm statistics at each step (_p21_hold), and the gate's
+    power at the first step; `failed` names what did not hold."""
+    names = one["names"]
+    out = {}
+    loss_one = [abs(a - b) for a, b in zip(one["loss"], hi["loss"])]
+    if spread is not None:
+        loss_one = [max(x, abs(a - b)) for x, a, b in
+                    zip(loss_one, spread["loss"], one["loss"])]
+    loss_bound = [max(P21_FLOOR_X * x, P21_LOSS_REL * abs(h))
+                  for x, h in zip(loss_one, hi["loss"])]
+    out["loss"] = {"tp": tp["loss"], "one": one["loss"], "hi": hi["loss"],
+                   "ratio": [abs(a - h) / b for a, h, b in
+                             zip(tp["loss"], hi["loss"], loss_bound)]}
+    ok = max(out["loss"]["ratio"]) <= 1.0
+    power = True
+
+    def powerful(r):
+        return r["max"] > 1.0 and r["sharded_refused"] >= P21_REFUSE_SHARE
+
+    sharded = np.array([n in set(tp["sharded"]) for n in names])
+    params = [k for k in one["state"] if k in set(names)]
+    stats = [k for k in one["state"]
+             if k.endswith(("running_mean", "running_var"))]
+    for s in range(len(one["grads"])):
+        extra = None
+        if spread is not None:
+            extra = [float((a - b).abs().max())
+                     for a, b in zip(spread["grads"][s], one["grads"][s])]
+            sp = np.array(extra) / np.maximum(np.array(
+                [float(h.abs().max()) for h in hi["grads"][s]]), 1e-30)
+            out[f"spread_step{s}_of_max"] = {
+                "median": float(np.median(sp)), "max": float(sp.max())}
+        h = _p21_hold(tp["grads"][s], one["grads"][s], hi["grads"][s],
+                      extra, rel, abs_, sharded)
+        h.pop("bounds")
+        h["at"] = names[h["at"]]
+        direct = np.array([float((t - o).abs().max())
+                           / (rel * float(o.abs().max()) + abs_ + 1e-30)
+                           for t, o in zip(tp["grads"][s], one["grads"][s])])
+        h["direct"] = {"worst": float(direct.max()),
+                       "over": int((direct > 1.0).sum()),
+                       "of": int(direct.size)}
+        out[f"grad_step{s}"] = h
+        ok &= h["worst"] <= 1.0
+        if s == 0:
+            power &= powerful(h["x2.0"]) and powerful(h["x0.5"])
+        for key, keys in (("params", params), ("stats", stats)):
+            if not keys:
+                continue
+            h = _p21_hold([tp["states"][s][k] for k in keys],
+                          [one["states"][s][k] for k in keys],
+                          [hi["states"][s][k] for k in keys], None, rel,
+                          abs_)
+            bounds = h.pop("bounds")
+            h["at"] = keys[h["at"]]
+            h.pop("x2.0"), h.pop("x0.5")
+            out[f"{key}_step{s}"] = h
+            ok &= h["worst"] <= 1.0
+            if key == "params" and s == 0 and unmoved:
+                # the parameters before the update, held as if updated
+                moved = np.array([
+                    float((one["init"][k] - hi["states"][0][k]).abs().max())
+                    / b for k, b in zip(keys, bounds)])
+                w = np.array([k in set(tp["sharded"]) for k in keys])
+                out["unmoved_over_bound"] = {
+                    "max": float(moved.max()),
+                    "median": float(np.median(moved)),
+                    "share_refused": float(np.mean(moved > 1.0)),
+                    "sharded_refused": float(np.mean(moved[w] > 1.0)),
+                    "share_over_10": float(np.mean(moved > 10.0))}
+                power &= powerful(out["unmoved_over_bound"])
+    out["failed"] = [why for why, bad in (
+        ("model = 2 off", not ok),
+        ("the gate passes a scaled gradient or an unseen update",
+         not power)) if bad]
+    return out
+
+
+def phase21_main(out_path: Path) -> int:
+    """Phase 21 on its own (a child process main() starts): the
+    tensor-parallel axis, model = 2 against model = 1 (P21_* above),
+    evaluate() on the gathered model, launches and step times; its rows
+    of the kernels JSON go to `out_path`."""
+    import torch.distributed as dist
+
+    from tpupose_torch.ops import _build
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout
+    card = smi.strip().splitlines()[0]
+    t_phase = time.perf_counter()
+    _build.build_all()
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= 2 else "gloo"
+    log(f"phase 21 card: {card}; {n_cards} card(s): the two model ranks "
+        f"run over {backend}" + (" (one rank a card)" if n_cards >= 2 else
+                                 ", both on cuda:0 (NCCL refuses two ranks "
+                                 "on one device)"))
+    shutil.rmtree(P21_DIR, ignore_errors=True)
+    P21_DIR.mkdir(parents=True)
+    try:
+        # the model = 1 reference first, alone on the card (its step
+        # times are read beside the ranks'), then the two ranks
+        _p21_group(backend, 0, 1, P21_DIR / "store_one")
+        try:
+            t0 = time.perf_counter()
+            one = _p21_drive(1, vit_runs=2)
+            one_s = time.perf_counter() - t0
+        finally:
+            dist.destroy_process_group()
+        # the higher-precision runs, one process without a group
+        t0 = time.perf_counter()
+        hi = {"r50": _p21_train("simple_baseline.yaml", P21_R50, 1,
+                                "r50_f64", precision="float64"),
+              "vit": _p21_train("vitpose_s.yaml", P21_VIT, 1, "vit_f32",
+                                precision="float32")}
+        hi_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__)
+                                                       .resolve()),
+                                   "--phase21-rank", str(r), "2", backend])
+                 for r in range(2)]
+        try:
+            codes = [p.wait(timeout=420) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        tp_s = time.perf_counter() - t0
+        if codes != [0, 0]:
+            raise AssertionError(f"phase 21: ranks exited {codes}")
+        r0 = torch.load(P21_DIR / "rank0.pt", weights_only=False)
+        r1 = torch.load(P21_DIR / "rank1.pt", weights_only=False)
+    finally:
+        shutil.rmtree(P21_DIR, ignore_errors=True)
+    for run in ("r50", "vit0"):
+        differ = [k for k, v in r0[run]["state"].items()
+                  if float(v.double().sum()) != r1[run]["sums"][k]]
+        if differ or r0[run]["loss"] != r1[run]["loss"]:
+            raise AssertionError(
+                f"phase 21 {run}: the two ranks differ: losses "
+                f"{r0[run]['loss']} / {r1[run]['loss']}, {len(differ)} "
+                f"tensors, first {differ[:8]}")
+    r50 = _p21_gate("R50", r0["r50"], one["r50"], hi["r50"])
+    vit = _p21_gate("ViTPose-S", r0["vit0"], one["vit0"], hi["vit"],
+                    spread=one["vit1"], rel=P21_BF16_STEP, abs_=0.0,
+                    unmoved=False)
+    if r50["failed"] or vit["failed"]:
+        raise AssertionError(f"phase 21: R50 {json.dumps(r50)}; ViTPose-S "
+                             f"{json.dumps(vit)}")
+    ev_tp, ev_one = r0["eval"]["metrics"], one["eval"]["metrics"]
+    ev_gap = {k: abs(ev_tp[k] - v) for k, v in ev_one.items()}
+    if ev_tp.keys() != ev_one.keys() or max(ev_gap.values()) > 1e-6:
+        raise AssertionError(f"phase 21 evaluate: {ev_tp} vs {ev_one}")
+    want_steps = {"affine_warp_full": 2}
+    want_eval = {"stem_pool": 2 * 2, "layer1": 6 * 2, "bridge": 2 * 2,
+                 "dark_decode": 2}
+    want_vit = {"flash_attention": 24, "flash_attention_bwd": 24}
+    for r, res in (("rank 0", r0), ("rank 1", r1), ("model = 1", one)):
+        _p19_check(f"21 R50 steps ({r})", res["r50"]["counts"], want_steps)
+        _p19_check(f"21 evaluate ({r})", res["eval"]["counts"], want_eval)
+        _p19_check(f"21 ViTPose-S steps ({r})", res["vit0"]["counts"],
+                   want_vit)
+    for run in ("r50", "vit0"):
+        if len(r0[run]["sharded"]) < 20 or one[run]["sharded"]:
+            raise AssertionError(f"phase 21 {run}: sharded "
+                                 f"{len(r0[run]['sharded'])} tensors")
+    log(f"phase 21 tensor parallel on {card} ({backend}): R50 256x192 "
+        f"float32 B=8 2 SGD steps, model = 2 and model = 1 against "
+        f"float64 {json.dumps(r50)}; ViTPose-S bf16 against float32 "
+        f"plain attention {json.dumps(vit)}; evaluate "
+        f"metrics {json.dumps(ev_tp)} (gap {max(ev_gap.values())}); step "
+        f"ms R50 model=2 {[round(v, 1) for v in r0['r50']['ms']]} / "
+        f"model=1 {[round(v, 1) for v in one['r50']['ms']]}, ViTPose-S "
+        f"model=2 {[round(v, 1) for v in r0['vit0']['ms']]} / model=1 "
+        f"{[round(v, 1) for v in one['vit0']['ms']]}; tensor-parallel "
+        f"collectives a step (rank 0): R50 "
+        f"{r0['r50']['collectives']}, ViTPose-S "
+        f"{r0['vit0']['collectives']}; sharded tensors R50 "
+        f"{len(r0['r50']['sharded'])}, ViTPose-S "
+        f"{len(r0['vit0']['sharded'])}; rank 0 launches R50 steps "
+        f"{r0['r50']['counts']}, evaluate {r0['eval']['counts']}, ViT "
+        f"steps {r0['vit0']['counts']}; model = 1 runs {one_s:.1f} s, "
+        f"the higher-precision runs {hi_s:.1f} s, the two ranks "
+        f"{tp_s:.1f} s")
+    readings = {"backend": backend, "r50": r50, "vit": vit,
+                "evaluate": ev_tp, "evaluate_gap": ev_gap,
+                "r50_step_ms": {"model2": r0["r50"]["ms"],
+                                "model1": one["r50"]["ms"]},
+                "vit_step_ms": {"model2": r0["vit0"]["ms"],
+                                "model1": one["vit0"]["ms"]},
+                "collectives": {"r50": r0["r50"]["collectives"],
+                                "vit": r0["vit0"]["collectives"]},
+                "phase_seconds": time.perf_counter() - t_phase}
+    log(f"phase 21 seconds: {readings['phase_seconds']:.1f}")
+    rows = {"affine_warp": {"launches_phase21_r50_steps":
+                            r0["r50"]["counts"]["affine_warp_full"],
+                            "phase21": readings},
+            "flash_attention": {"launches_phase21_vit_steps":
+                                r0["vit0"]["counts"]["flash_attention"]},
+            "flash_attention_bwd": {"launches_phase21_vit_steps":
+                                    r0["vit0"]["counts"]
+                                    ["flash_attention_bwd"]}}
+    for k in ("stem_pool", "layer1", "bridge", "dark_decode"):
+        rows[k] = {"launches_phase21_evaluate": r0["eval"]["counts"][k]}
+    out_path.write_text(json.dumps(rows))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5516,6 +6015,17 @@ def main() -> int:
         results[kernel].update(row)
     phase20.unlink()
 
+    # -- phase 21: the tensor-parallel 'model' axis, model = 2 (two ranks)
+    # against model = 1 on the R50 and ViTPose-S steps and the R50's
+    # evaluate() on the gathered model; in a child process, as phases
+    # 11-20, which starts the two ranks -----------------------------------
+    phase21 = ROOT / "build" / "chip_smoke_phase21.json"
+    subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                    "--phase21", str(phase21)], check=True, timeout=600)
+    for kernel, row in json.loads(phase21.read_text()).items():
+        results[kernel].update(row)
+    phase21.unlink()
+
     # -- phase 9: device times, measured last so that no profiler session
     # precedes the timing of any other phase -----------------------------------
     k8_row = results["flash_attention"]
@@ -5634,15 +6144,20 @@ if __name__ == "__main__":
         sys.exit(phase11_main(Path(sys.argv[2]), Path(sys.argv[3])))
     if len(sys.argv) == 3 and sys.argv[1] == "--phase12":
         sys.exit(hrnet_main(Path(sys.argv[2])))
+    if len(sys.argv) == 5 and sys.argv[1] == "--phase21-rank":
+        sys.exit(phase21_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                                   sys.argv[4]))
     if len(sys.argv) == 3 and sys.argv[1] in ("--phase15", "--phase16",
                                               "--phase17", "--phase18",
-                                              "--phase20", "--phase20-load"):
+                                              "--phase20", "--phase20-load",
+                                              "--phase21"):
         if not torch.cuda.is_available():
             print("chip_smoke: CUDA is not available", file=sys.stderr)
             sys.exit(2)
         sys.exit({"--phase15": video_main, "--phase16": dino_train_main,
                   "--phase17": families_main,
                   "--phase18": phase18_main, "--phase20": phase20_main,
-                  "--phase20-load": phase20_load_main}[sys.argv[1]](
+                  "--phase20-load": phase20_load_main,
+                  "--phase21": phase21_main}[sys.argv[1]](
                       Path(sys.argv[2])))
     sys.exit(main())

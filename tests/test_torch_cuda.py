@@ -1544,3 +1544,64 @@ def test_sync_batchnorm_on_the_card_equals_batchnorm(card, tmp_path):
                 assert _rel(a, b) < tol
     finally:
         dist.destroy_process_group()
+
+
+def test_tensor_parallel_r50_step_over_nccl_equals_model1(tmp_path):
+    """The tensor-parallel axis over NCCL, one rank a card: a float32 SGD
+    step of the R50 256x192 Trainer at data 1 x model 2 (device affine,
+    global B = 8, noise pixels) against one process at model = 1 in a
+    one-rank NCCL group (the same DDP and SyncBatchNorm2d arithmetic),
+    both held against the step in float64 as chip_smoke.py's phase 21
+    holds them: the loss, every gathered gradient and every updated
+    tensor within the larger of 4x model = 1's distance from float64 and
+    1e-4 of the tensor's largest magnitude plus 1e-6 (1e-5 relative for
+    the loss); twice and half model = 1's gradient, and the parameters
+    before the update, are refused. Needs two cards (skips on one)."""
+    import multiprocessing as mp
+    import time
+
+    import torch.distributed as dist
+
+    import torch_dp_worker as worker
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=worker.run,
+                         args=(r, 2, str(tmp_path / "store_tp"),
+                               str(tmp_path), "tp_r50_card"))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    end = time.monotonic() + 400
+    for p in procs:
+        p.join(max(0.0, end - time.monotonic()))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join()
+    assert not hung and [p.exitcode for p in procs] == [0, 0]
+    tp = torch.load(tmp_path / "tp_r50_card_0.pt", weights_only=False)
+    worker.card_group("nccl", 0, 1, str(tmp_path / "store_one"))
+    try:
+        one = worker.tp_r50_card(str(tmp_path / "one"), model=1)
+    finally:
+        dist.destroy_process_group()
+    hi = worker.tp_r50_card(str(tmp_path / "hi"), model=1, float64=True)
+
+    def worst(got, ones, his):
+        return max(float((g - h).abs().max()) / max(
+            4.0 * float((o - h).abs().max()),
+            1e-4 * float(h.abs().max()) + 1e-6)
+            for g, o, h in zip(got, ones, his))
+
+    bound = max(4.0 * abs(one["loss"] - hi["loss"]), 1e-5 * hi["loss"])
+    assert abs(tp["loss"] - hi["loss"]) <= bound
+    assert worst(tp["grads"], one["grads"], hi["grads"]) <= 1.0
+    for x in (2.0, 0.5):
+        assert worst([x * g for g in one["grads"]], one["grads"],
+                     hi["grads"]) > 1.0
+    keys = list(hi["state"])
+    states = [[r["state"][k] for k in keys] for r in (tp, one, hi)]
+    assert worst(*states) <= 1.0
+    assert worst([one["before"][k] for k in keys], *states[1:]) > 1.0

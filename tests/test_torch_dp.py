@@ -22,7 +22,7 @@ import pytest
 import torch
 
 import torch_dp_worker as worker
-from tpupose_torch.parallel import mesh, sharding
+from tpupose_torch.parallel import mesh
 
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -173,23 +173,6 @@ def test_mesh_layout_and_errors():
     assert not mm.distributed and mm.is_master
     assert (mm.data_size, mm.model_size) == (1, 1)
     assert mm.local_batch_size(64) == 64
-
-
-def test_tensor_parallel_axis_raises_citing_item_12e(tmp_path):
-    """mesh.model > 1 raises everywhere it enters: the layout, the
-    manager, shard_params, and a Trainer built with it."""
-    from tpupose_torch.engine.trainer import Trainer
-
-    with pytest.raises(ValueError, match="item 12e"):
-        mesh.mesh_shape(-1, 2, world=8)
-    with pytest.raises(ValueError, match="item 12e"):
-        mesh.MeshManager(model=2, device="cpu")
-    with pytest.raises(ValueError, match="item 12e"):
-        sharding.shard_params(torch.nn.Linear(2, 2), 2)
-    cfg = worker.tiny_cfg(str(tmp_path))
-    cfg.mesh.model = 2
-    with pytest.raises(ValueError, match="item 12e"):
-        Trainer(cfg, device="cpu")
 
 
 def test_sharded_loader_loads_each_ranks_slice_of_the_global_batch():

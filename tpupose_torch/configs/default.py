@@ -4,10 +4,12 @@ tpupose/configs/default.py).
 The same nested dataclasses, defaults, YAML merge (`merge_dict`), dotted
 CLI overrides (`merge_dotted`, `_coerce`) and freeze semantics. The
 port's own copies of the method YAMLs are under
-tpupose_torch/configs/method/. `mesh` is the data-parallel layout
-(tpupose_torch/parallel/mesh.py): `mesh.data` processes of
-torchrun, each on its own device; `mesh.model > 1`, the tensor-parallel
-axis, raises (ROADMAP Queue A item 12e).
+tpupose_torch/configs/method/. `mesh` is the (data, model) layout
+(tpupose_torch/parallel/mesh.py) of torchrun's processes, each on its
+own device: `mesh.model` ranks share one data slice and shard the wide
+layers' output channels (the tensor-parallel axis,
+parallel/tensor_parallel.py), `mesh.data` of those groups split the
+batch.
 """
 
 from __future__ import annotations
@@ -216,9 +218,9 @@ class ServeConfig:
 
 @dataclass
 class MeshConfig:
-    """Data-parallel layout (the `--gpus` analog)."""
-    data: int = -1                      # -1: every process of the group
-    model: int = 1                      # tensor-parallel axis: 1 only
+    """(data, model) layout (the `--gpus` analog)."""
+    data: int = -1                      # -1: every process model leaves
+    model: int = 1                      # tensor-parallel axis
 
 
 @dataclass

@@ -2,8 +2,9 @@
 tpupose/configs/parser.py; reference: HPE/configs/parser.py:3-28,
 pose/configs/parser.py:4-43 `parse_args` / `update_config`).
 
-Same UX: `--cfg experiment.yaml`, `--ckpt`, `--test`, dotted overrides,
-freeze, print. The JAX package's `--mesh-*` flags are replaced by
+Same UX: `--cfg experiment.yaml`, `--ckpt`, `--test`, the mesh flags
+(`--mesh-data`, `--mesh-model`: cfg.mesh, the (data, model) layout of
+the processes torchrun starts), dotted overrides, freeze, print; and
 `--device` (default "cuda"; "cpu" runs on the CPU).
 """
 
@@ -21,6 +22,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--cfg", type=str, default="", help="YAML experiment config")
     p.add_argument("--ckpt", type=str, default="", help="checkpoint to load")
     p.add_argument("--test", action="store_true", help="eval-only mode")
+    p.add_argument("--mesh-data", type=int, default=None,
+                   help="data-parallel axis size (-1 = all)")
+    p.add_argument("--mesh-model", type=int, default=None,
+                   help="model-parallel axis size")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device: cuda (default) or cpu")
     p.add_argument(
@@ -58,6 +63,10 @@ def update_config(cfg: Config, args: argparse.Namespace) -> Config:
         cfg.merge_dict(_load_yaml(args.cfg))
     if args.ckpt:
         cfg.model.checkpoint = args.ckpt
+    if getattr(args, "mesh_data", None) is not None:
+        cfg.mesh.data = args.mesh_data
+    if getattr(args, "mesh_model", None) is not None:
+        cfg.mesh.model = args.mesh_model
     dotted = {}
     for item in args.opts:
         if "=" not in item:

@@ -7,7 +7,7 @@ DINOv3Pose's pose_compute and v8_pose, coord_mse, rle, ae, simcc_kl),
 split, frozen backbone, global-norm clipping), `dataset()` (synthetic,
 synthetic_yolo, yolo_pose, coco, mpii), `dataloader()` (under data
 parallelism each process loads its own contiguous slice of every global
-batch) and `set_device()`, the data-parallel layout of `mesh`
+batch) and `set_device()`, the (data, model) layout of `mesh`
 (parallel/mesh.MeshManager).
 """
 
@@ -295,7 +295,7 @@ class Builder:
             seed=0 if split == "train" else 1)
 
     def set_device(self):
-        """The data-parallel layout of cfg.mesh (parallel/mesh.
+        """The (data, model) layout of cfg.mesh (parallel/mesh.
         MeshManager: the process group where torchrun started this
         process, one device a process), built once."""
         if self._mesh_mgr is None:
@@ -308,8 +308,9 @@ class Builder:
 
     def dataloader(self, dataset, split: str = "train"):
         """train.batch_size is the global batch: under data parallelism
-        each rank's train loader loads its slice of it. Evaluation loads
-        the whole valid set on every rank, the tail batch padded
+        each data rank's train loader loads its slice of it (the model
+        ranks of one data index the same slice). Evaluation loads the
+        whole valid set on every rank, the tail batch padded
         (pad_mask)."""
         from tpupose_torch.data.loader import BatchLoader
 
@@ -320,7 +321,7 @@ class Builder:
         if split == "train" and self._mesh_mgr is not None:
             mm = self._mesh_mgr
             mm.local_batch_size(bs)                 # divisible, or raise
-            shard = (mm.rank, mm.world)
+            shard = (mm.data_rank, mm.data_size)
         return BatchLoader(dataset, batch_size=bs, shuffle=(split == "train"),
                            drop_last=(split == "train"),
                            seed=self.cfg.train.seed,

@@ -12,7 +12,10 @@ with its metric and step in `best_meta.json` so they survive restarts;
 Files are `torch.save` of TrainState.state_dict(): {step, model (state
 dict with the BatchNorm statistics), optimizer (update count and
 torch.optim state), ema}, written to a temporary name and renamed, as
-`<dir>/periodic/<step>.pt` and `<dir>/best/<step>.pt`.
+`<dir>/periodic/<step>.pt` and `<dir>/best/<step>.pt`. Under a process
+group every rank takes part in building that dict (under tensor
+parallelism it gathers the sharded tensors, so a file is the
+one-process format at any model axis) and rank 0 writes it.
 """
 
 from __future__ import annotations
@@ -56,34 +59,37 @@ class CheckpointManager:
                 pass
 
     @staticmethod
-    def _write(state, path: str):
-        if not is_master():
-            return
+    def _write(sd: dict, path: str):
         tmp = f"{path}.{os.getpid()}.tmp"
-        torch.save(state.state_dict(), tmp)
+        torch.save(sd, tmp)
         os.replace(tmp, path)
 
     def save(self, step: int, state, metric: Optional[float] = None,
              force: bool = False, epoch: Optional[int] = None):
         """Best slot when `metric` improves; periodic when the epoch (or
-        step) is due or `force`."""
-        if metric is not None and metric < self.best_metric:
+        step) is due or `force`. Every rank calls it with the same
+        arguments; rank 0 writes."""
+        best = metric is not None and metric < self.best_metric
+        due = ((epoch + 1) % self.interval == 0 if epoch is not None
+               else step % self.interval == 0)
+        # every rank builds the dict (a collective under tensor
+        # parallelism), then rank 0 writes it
+        sd = state.state_dict() if best or force or due else None
+        if best:
             self.best_metric = float(metric)
             self.best_step = step
-            if is_master():          # under data parallelism rank 0 writes
+            if is_master():
                 for old in _steps(self._best):
                     os.remove(os.path.join(self._best, f"{old}.pt"))
-                self._write(state, os.path.join(self._best, f"{step}.pt"))
+                self._write(sd, os.path.join(self._best, f"{step}.pt"))
                 with open(self._meta_path, "w") as f:
                     json.dump({"metric": self.best_metric,
                                "step": self.best_step}, f)
             printT(f"best checkpoint saved @ step {step} "
                    f"(metric {self.best_metric:.5f})")
-        due = ((epoch + 1) % self.interval == 0 if epoch is not None
-               else step % self.interval == 0)
         if force or due:
             if is_master():
-                self._write(state, os.path.join(self._periodic, f"{step}.pt"))
+                self._write(sd, os.path.join(self._periodic, f"{step}.pt"))
                 for old in _steps(self._periodic)[:-self.max_to_keep]:
                     os.remove(os.path.join(self._periodic, f"{old}.pt"))
             printT(f"checkpoint saved @ step {step}")

@@ -39,6 +39,9 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
+from tpupose_torch.parallel.tensor_parallel import (full_tensor, local_part,
+                                                    model_group_of, shard_of)
+
 # optax 0.2.6's defaults of the rules the JAX registry builds from the lr
 # (and weight_decay) alone (optax/_src/alias.py)
 OPTAX_DEFAULTS = {
@@ -53,16 +56,34 @@ OPTAX_DEFAULTS = {
 _RULES = ("nadam", "radam", "rmsprop", "adagrad") + tuple(OPTAX_DEFAULTS)
 
 
-def _trust_ratio(us, ps, coeff=1.0, eps=0.0, min_norm=0.0):
+def _leaf_norms(ts, shards=None) -> torch.Tensor:
+    """Each tensor's norm, stacked; a tensor that is this rank's block of
+    a sharded leaf (tensor_parallel.Shard in `shards`) gets the whole
+    leaf's norm, its squared norm summed over the model group (one
+    all-reduce for every such leaf)."""
+    norms = torch.stack([n.float() for n in torch._foreach_norm(ts)])
+    group = next((s.group for s in shards or () if s is not None), None)
+    if group is None:
+        return norms
+    import torch.distributed as dist
+
+    mask = torch.tensor([s is not None for s in shards], device=norms.device)
+    sq = torch.where(mask, norms * norms, torch.zeros_like(norms))
+    dist.all_reduce(sq, group=group)
+    return torch.where(mask, sq.sqrt(), norms)
+
+
+def _trust_ratio(us, ps, coeff=1.0, eps=0.0, min_norm=0.0, shards=None):
     """optax.scale_by_trust_ratio on each leaf of a list: u * coeff * |p|
     / (|u| + eps), the norms clipped below at min_norm, and a ratio of 1
-    where either norm is zero (the leaf would never move otherwise). The
-    ratios stay on the device: no host sync."""
-    pn = torch.stack(torch._foreach_norm(ps)).clamp_min(min_norm)
-    un = torch.stack(torch._foreach_norm(us)).clamp_min(min_norm)
+    where either norm is zero (the leaf would never move otherwise); a
+    sharded leaf's norms are the whole leaf's (`shards`, _leaf_norms).
+    The ratios stay on the device: no host sync."""
+    pn = _leaf_norms(ps, shards).clamp_min(min_norm)
+    un = _leaf_norms(us, shards).clamp_min(min_norm)
     r = coeff * pn / (un + eps)
     r = torch.where((pn == 0) | (un == 0), torch.ones_like(r), r)
-    return torch._foreach_mul(us, list(r.unbind()))
+    return torch._foreach_mul(us, list(r.to(us[0].dtype).unbind()))
 
 
 def _bias_correction(decay: float, t: int) -> float:
@@ -147,6 +168,7 @@ class OptaxRule(torch.optim.Optimizer):
         lr, b1, b2, eps = grp["lr"], grp["b1"], grp["b2"], grp["eps"]
         wd = grp["weight_decay"]
         rule = self.rule
+        shards = [shard_of(p) for p in ps]
         def state(key):
             return [st[key] for st in sts]
 
@@ -187,7 +209,7 @@ class OptaxRule(torch.optim.Optimizer):
                 if rule != "nadam":
                     torch._foreach_add_(u, ps, alpha=wd)
                 if rule == "lamb":
-                    u = _trust_ratio(u, ps)
+                    u = _trust_ratio(u, ps, shards=shards)
             torch._foreach_add_(ps, u, alpha=-lr)
         elif rule == "rmsprop":
             nu, trace = state("nu"), state("trace")
@@ -212,7 +234,7 @@ class OptaxRule(torch.optim.Optimizer):
         elif rule == "lars":
             trace = state("trace")
             u = _trust_ratio(torch._foreach_add(gs, ps, alpha=wd), ps,
-                             grp["trust_coefficient"], eps)
+                             grp["trust_coefficient"], eps, shards=shards)
             torch._foreach_mul_(trace, grp["momentum"])
             torch._foreach_add_(trace, u, alpha=-lr)
             torch._foreach_add_(ps, trace)
@@ -227,7 +249,8 @@ class OptaxRule(torch.optim.Optimizer):
         elif rule == "fromage":
             mult = 1.0 / math.sqrt(1.0 + lr * lr)
             mult0 = 1.0 / math.sqrt(1.0 + grp["lr0"] ** 2)
-            u = _trust_ratio(gs, ps, min_norm=grp["min_norm"])
+            u = _trust_ratio(gs, ps, min_norm=grp["min_norm"],
+                             shards=shards)
             torch._foreach_mul_(u, -(mult * lr))
             torch._foreach_add_(u, ps, alpha=mult0 - 1.0)
             torch._foreach_add_(ps, u)
@@ -302,7 +325,18 @@ class GroupedOptimizer:
     mean of the window and returns; at the k-th mini-step the mean takes
     the gradients' place, is clipped, and updates. The mean, the
     mini-step count and the update count are in `state_dict()`, so a
-    resume inside a window goes on exactly."""
+    resume inside a window goes on exactly.
+
+    Under tensor parallelism (parallel/tensor_parallel.py) a replicated
+    parameter's gradient is first averaged over the model group (its
+    ranks compute it alike, but a kernel that sums in no fixed order,
+    such as a cuDNN weight gradient, may round it differently on each,
+    and the copies would drift apart); the global norm adds a sharded
+    parameter's squared norm over the model group and a replicated
+    one's once; the moments and the window's mean take
+    each parameter's (sharded) shape, and `state_dict()` gathers them
+    into the one-process format that `load_state_dict` cuts again (both
+    collectives over the model group)."""
 
     def __init__(self, named_params, inner_factory, schedules: dict,
                  labels: dict, grad_clip_norm: float = 0.0,
@@ -327,11 +361,11 @@ class GroupedOptimizer:
             p.grad = None
 
     def global_norm(self) -> torch.Tensor:
-        grads = [p.grad for p in self.params if p.grad is not None]
-        if not grads:
+        ps = [p for p in self.params if p.grad is not None]
+        if not ps:
             return torch.zeros(())
-        return torch.linalg.vector_norm(torch.stack(
-            [n.float() for n in torch._foreach_norm(grads)]))
+        return torch.linalg.vector_norm(
+            _leaf_norms([p.grad for p in ps], [shard_of(p) for p in ps]))
 
     def lrs(self) -> dict:
         """Each group's lr for the next update."""
@@ -358,8 +392,18 @@ class GroupedOptimizer:
         torch._foreach_zero_(self.acc)
         return True
 
+    def _mean_replicated_grads(self):
+        group = model_group_of(self.params)
+        if group is not None:
+            from tpupose_torch.parallel.shard_map_step import all_reduce_mean_
+
+            all_reduce_mean_([p.grad for p in self.params
+                              if p.grad is not None and shard_of(p) is None],
+                             group)
+
     @torch.no_grad()
     def step(self) -> torch.Tensor:
+        self._mean_replicated_grads()
         norm = self.global_norm()
         if self.accum_steps > 1 and not self._accumulate():
             return norm
@@ -378,10 +422,24 @@ class GroupedOptimizer:
         self.count += 1
         return norm
 
+    def _inner_params(self) -> list:
+        """The inner optimizer's parameters in its state dict's index
+        order."""
+        return [p for g in self.inner.param_groups for p in g["params"]]
+
     def state_dict(self) -> dict:
-        return {"count": self.count,
-                "inner": self.inner.state_dict() if self.inner else None,
-                "mini_step": self.mini_step, "acc": self.acc}
+        inner = None
+        if self.inner is not None:
+            inner = self.inner.state_dict()
+            ps = self._inner_params()
+            inner["state"] = {i: _map_state(st, ps[i], full_tensor)
+                              for i, st in inner["state"].items()}
+        acc = self.acc
+        if acc is not None:
+            acc = [full_tensor(a, shard_of(p))
+                   for a, p in zip(acc, self.params)]
+        return {"count": self.count, "inner": inner,
+                "mini_step": self.mini_step, "acc": acc}
 
     def load_state_dict(self, sd: dict):
         mini_step = int(sd.get("mini_step", 0))
@@ -391,11 +449,27 @@ class GroupedOptimizer:
                              f"grad_accum_steps={self.accum_steps}")
         self.count = int(sd["count"])
         if self.inner is not None:
-            self.inner.load_state_dict(sd["inner"])
+            inner = dict(sd["inner"])
+            ps = self._inner_params()
+            inner["state"] = {i: _map_state(st, ps[int(i)], local_part)
+                              for i, st in inner["state"].items()}
+            self.inner.load_state_dict(inner)
         self.mini_step = mini_step
         acc = sd.get("acc")
         self.acc = None if acc is None else [
-            a.to(p.device, p.dtype).clone() for a, p in zip(acc, self.params)]
+            local_part(a.to(p.device, p.dtype), shard_of(p)).clone()
+            for a, p in zip(acc, self.params)]
+
+
+def _map_state(st: dict, p, fn) -> dict:
+    """A parameter's optimizer state with `fn(tensor, shard)` applied to
+    each tensor of the parameter's rank (its moments; not a step count),
+    where the parameter is sharded."""
+    s = shard_of(p)
+    if s is None:
+        return st
+    return {k: fn(v, s) if torch.is_tensor(v) and v.dim() == p.dim() else v
+            for k, v in st.items()}
 
 
 def make_optimizer(cfg, named_params: Iterable, schedule: Callable = None,

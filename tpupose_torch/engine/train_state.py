@@ -42,13 +42,24 @@ from tpupose_torch.ops.mosaic import draw_mosaic, mosaic_augment_normalized
 from tpupose_torch.ops.preprocess import (IMAGENET_MEAN, IMAGENET_STD,
                                           color_jitter, draw_color_jitter,
                                           normalize_images)
+from tpupose_torch.parallel.tensor_parallel import (full_state_dict,
+                                                    full_tensor, gather_full,
+                                                    load_full_state_dict,
+                                                    local_part, shard_of)
 
 
 class TrainState:
     """Model, optimizer, update count and an optional EMA of the
     parameters (decay min(d, (1 + t) / (10 + t)) at update t, so early
     EMA tracks the fast-moving init). BatchNorm statistics live in the
-    model's buffers; the EMA covers parameters only, as in JAX."""
+    model's buffers; the EMA covers parameters only, as in JAX.
+
+    Under tensor parallelism (parallel/tensor_parallel.py) the model's
+    wide layers, their EMA and their optimizer state hold this model
+    rank's output channels; `for_eval` and `state_dict` gather them
+    (every model rank must call them) and `load_state_dict` takes this
+    rank's block of a full state, so a checkpoint is the one-process
+    format whatever the model axis."""
 
     def __init__(self, model: torch.nn.Module, optimizer,
                  ema_decay: float = 0.0):
@@ -59,10 +70,11 @@ class TrainState:
         self.ema = ([p.detach().clone() for p in model.parameters()]
                     if self.ema_decay > 0 else None)
         self._eval_model = None
-        # data parallelism (Trainer under torchrun): this process's rank
-        # of `dp_world`, and the DistributedDataParallel wrapper the steps
-        # run the model through
-        self.dp_rank, self.dp_world = 0, 1
+        # data parallelism (Trainer under torchrun): this process's data
+        # rank of `dp_world` in the data group `dp_group` (None: the
+        # default group), and the DistributedDataParallel wrapper the
+        # steps run the model through
+        self.dp_rank, self.dp_world, self.dp_group = 0, 1, None
         self.ddp = None
 
     def train_module(self) -> torch.nn.Module:
@@ -83,13 +95,14 @@ class TrainState:
         return {k: tuple(t[rows] for t in v) for k, v in draws.items()}
 
     def global_mean(self, t: torch.Tensor) -> torch.Tensor:
-        """A per-rank scalar averaged over the ranks (t itself on one)."""
+        """A per-rank scalar averaged over the data group (t itself on
+        one rank; the model ranks of one data index hold the same t)."""
         if self.dp_world == 1:
             return t
         import torch.distributed as dist
 
         t = t.clone()
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=self.dp_group)
         return t / self.dp_world
 
     @torch.no_grad()
@@ -109,10 +122,18 @@ class TrainState:
         self.step += 1
         return grad_norm
 
+    def _sharded(self) -> bool:
+        return any(shard_of(p) is not None for p in self.model.parameters())
+
     def for_eval(self) -> torch.nn.Module:
         """The module evaluation should use: the model itself, or (with an
         EMA) a copy carrying the EMA parameters and the live BatchNorm
-        statistics."""
+        statistics; under tensor parallelism a full, unsharded copy of
+        either (gathered at every call)."""
+        if self._sharded():
+            self._eval_model = gather_full(self.model, self._eval_model,
+                                           params=self.ema)
+            return self._eval_model.eval()
         if self.ema is None:
             return self.model
         if self._eval_model is None:
@@ -125,17 +146,26 @@ class TrainState:
         return self._eval_model.eval()
 
     def state_dict(self) -> dict:
-        return {"step": self.step, "model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict(),
-                "ema": self.ema}
+        """The one-process format: sharded weights, their EMA and their
+        optimizer state gathered."""
+        ema = self.ema
+        if ema is not None:
+            ema = [full_tensor(e, shard_of(p))
+                   for e, p in zip(ema, self.model.parameters())]
+        return {"step": self.step, "model": full_state_dict(self.model),
+                "optimizer": self.optimizer.state_dict(), "ema": ema}
 
     def load_state_dict(self, sd: dict):
+        """Load a one-process state (each sharded tensor takes this
+        rank's block)."""
         self.step = int(sd["step"])
-        self.model.load_state_dict(sd["model"])
+        load_full_state_dict(self.model, sd["model"])
         self.optimizer.load_state_dict(sd["optimizer"])
         if self.ema is not None:
-            src = sd.get("ema") or [p.detach() for p in
-                                    self.model.parameters()]
+            params = list(self.model.parameters())
+            src = sd.get("ema")
+            src = ([local_part(s, shard_of(p)) for s, p in zip(src, params)]
+                   if src else [p.detach() for p in params])
             with torch.no_grad():
                 for e, s in zip(self.ema, src):
                     e.copy_(s)
@@ -143,8 +173,11 @@ class TrainState:
 
 def step_seed(seed: int, step: int) -> int:
     """The draw generator's seed for update `step` of a run seeded
-    `seed` (both as 32-bit fields of one 64-bit seed)."""
-    return ((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF)
+    `seed`: one 64-bit seed, the seed in its high 32 bits, and in its low
+    32 bits the step mixed with the seed (a CPU generator keeps only the
+    low 32 bits of its seed, so they must depend on both)."""
+    low = (step ^ (seed * 0x9E3779B1)) & 0xFFFFFFFF
+    return ((seed & 0xFFFFFFFF) << 32) | low
 
 
 def _make_draws_for(seed: int, use_affine: bool, rotation: float,
@@ -389,7 +422,8 @@ def make_yolo_train_step(loss_fn, mosaic_prob: float = 0.0,
         if mosaic_prob > 0:
             if draws is None:
                 # the mosaic mixes the images of one batch: under data
-                # parallelism each rank mixes its own, on its own draws
+                # parallelism each data rank mixes its own, on its own
+                # draws (the model ranks of a data index on the same)
                 draws = draws_for(state.step, images.shape[0], images.device,
                                   state.dp_rank)
             (images, targets["boxes"], targets["classes"],

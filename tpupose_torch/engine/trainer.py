@@ -39,7 +39,15 @@ take the step one process takes at the global batch (the yolo family's
 mosaic mixes each rank's own images: with it the ranks' step is DDP's,
 not one process's). EMA, checkpoints and logs come from rank 0;
 every rank restores, evaluates and validates the whole valid set.
-The tensor-parallel axis (mesh.model > 1) raises (Queue A item 12e).
+With mesh.model > 1 the ranks form a (data, model) mesh (parallel/
+mesh.py): the model's wide Conv2d, ConvTranspose2d and Linear layers
+keep their model rank's output channels and gather their outputs
+(parallel/tensor_parallel.py, JAX's shard rule), the model ranks of one
+data index load the same batch slice and draw the same values, and DDP,
+the synchronised BatchNorms and the loss count run over the data group;
+evaluation runs on a gathered, full copy of the eval weights (so the
+R50's K1-K4 route), and checkpoints hold the one-process format. The
+distillation teacher stays replicated.
 
 Runs on `device` (default "cuda"; raises where CUDA is absent). On the
 card a ViTPose step runs the flash-attention kernels K8 (forward) and K8b
@@ -170,11 +178,11 @@ class Trainer:
             self.load_checkpoint(cfg.model.checkpoint)
 
     def _wrap_data_parallel(self):
-        """Data parallelism over the process group: the model's BatchNorms
+        """Data parallelism over the data group: the model's BatchNorms
         become SyncBatchNorm2d (global-batch statistics, as under JAX's
         jit sharding), and the train steps run it through
         DistributedDataParallel, whose backward averages the gradients
-        over the ranks, so the clip and the update see the global
+        over the data ranks, so the clip and the update see the global
         gradient. Buffers are not broadcast (the synchronised statistics
         are equal on every rank), and a parameter a step leaves unused (a
         frozen backbone, a branch the family does not run) is allowed."""
@@ -182,7 +190,8 @@ class Trainer:
 
         from tpupose_torch.parallel.sync_bn import convert_sync_batchnorm
 
-        convert_sync_batchnorm(self.model)
+        mm = self.mesh_mgr
+        convert_sync_batchnorm(self.model, mm.data_group)
         dev = self.device
         if dev.type == "cuda":
             ids = [dev.index if dev.index is not None
@@ -190,10 +199,10 @@ class Trainer:
         else:
             ids = None
         self.state.ddp = DistributedDataParallel(
-            self.model, device_ids=ids,
+            self.model, device_ids=ids, process_group=mm.data_group,
             broadcast_buffers=False, find_unused_parameters=True)
-        self.state.dp_rank = self.mesh_mgr.rank
-        self.state.dp_world = self.mesh_mgr.world
+        self.state.dp_rank, self.state.dp_world = mm.data_rank, mm.data_size
+        self.state.dp_group = mm.data_group
 
     def _build_teacher(self) -> torch.nn.Module:
         """The distillation teacher (train.distill_cfg / distill_ckpt):

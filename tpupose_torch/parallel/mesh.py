@@ -1,4 +1,4 @@
-"""Process group and data-parallel layout (counterpart of
+"""Process group and the (data, model) layout (counterpart of
 tpupose/parallel/mesh.py, the reference's DDPManager).
 
 JAX's device mesh                      -> here
@@ -7,9 +7,9 @@ jax.distributed.initialize()          -> `setup_distributed()`: a process
                                           group from torchrun's WORLD_SIZE
                                           / RANK (NCCL on the card, gloo
                                           for device="cpu")
-mesh ('data', 'model')                -> `create_mesh()`: a
-                                          torch.distributed DeviceMesh of
-                                          shape (data, model)
+mesh ('data', 'model')                -> `create_mesh()`: a `Mesh`, this
+                                          process's coordinates and its
+                                          data and model groups
 batch sharded on 'data' (P('data'))   -> `shard_batch()`: each rank the
                                           contiguous slice of dim 0 of the
                                           global batch that P('data')
@@ -22,10 +22,19 @@ global-batch loss normalisers         -> `global_count()`, the losses'
                                           `count` a data-parallel Trainer
                                           passes
 jax.process_index() == 0              -> `is_master()`
+kernels sharded on 'model' (GSPMD)    -> tensor_parallel.shard_module:
+                                          column-parallel Conv2d /
+                                          ConvTranspose2d / Linear, their
+                                          output gathered (MeshManager.
+                                          shard_state)
 
-Only `mesh.model == 1` is ported: the tensor-parallel axis raises
-(ROADMAP Queue A item 12e). One process drives one device; `mesh.data`
-is the number of processes (-1: all of them).
+One process drives one device. Ranks map row-major onto (data, model),
+rank = d * model + m, as JAX's `devices.reshape(data, model)` lays them
+out: the `model` ranks of one data index load the same batch slice and
+draw the same random values, and DDP, SyncBatchNorm2d, the loss count
+and the reported means run over the data group (`data_group`), the
+tensor-parallel collectives over the model group (`model_group`).
+`mesh.data` = -1 takes every process the model axis leaves.
 """
 
 from __future__ import annotations
@@ -33,26 +42,21 @@ from __future__ import annotations
 import atexit
 import datetime
 import os
+from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
 
 from tpupose_torch.utils.logging import is_master, printT
 
-__all__ = ["DATA_AXIS", "MODEL_AXIS", "MeshManager", "create_mesh",
-           "global_count", "is_master",
-           "local_slice", "mesh_shape", "rank_and_world",
-           "setup_distributed", "shard_batch", "tensor_parallel_error"]
+__all__ = ["DATA_AXIS", "MODEL_AXIS", "Mesh", "MeshManager", "create_mesh",
+           "global_count", "is_master", "local_slice", "mesh_coords",
+           "mesh_shape", "rank_and_world", "setup_distributed",
+           "shard_batch"]
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 DEFAULT_TIMEOUT_S = 600.0
-
-def tensor_parallel_error(model: int) -> ValueError:
-    return ValueError(
-        f"mesh.model={model}: the tensor-parallel axis is not ported to "
-        f"tpupose_torch yet (ROADMAP Queue A item 12e); use mesh.model=1")
-
 
 def setup_distributed(device="cuda", timeout_s: float = DEFAULT_TIMEOUT_S):
     """Start the default process group where torchrun's WORLD_SIZE and
@@ -89,10 +93,11 @@ def rank_and_world() -> tuple[int, int]:
 
 
 def global_count(world: int, group=None):
-    """The loss normaliser of a data-parallel step over `world` ranks (a
-    loss's `count`, losses/normalize.py): n, a loss's count of weighted
-    rows in this rank's batch, is summed over the ranks, and max(sum, 1)
-    divided by `world`. A rank's loss is then its share of the global
+    """The loss normaliser of a data-parallel step over the `world` ranks
+    of `group` (the data group; None: the default group) (a loss's
+    `count`, losses/normalize.py): n, a loss's count of weighted rows in
+    this rank's batch, is summed over them, and max(sum, 1) divided by
+    `world`. A rank's loss is then its share of the global
     batch's, and DistributedDataParallel's mean of the ranks' gradients
     is the gradient one process takes at the global batch, as under
     JAX's jit sharding. Each call all-reduces n; the count carries no
@@ -108,11 +113,9 @@ def global_count(world: int, group=None):
 
 def mesh_shape(data: int = -1, model: int = 1, world: int | None = None):
     """(data, model) for `world` processes, with JAX's errors for sizes
-    that do not divide; model > 1 raises (Queue A item 12e)."""
+    that do not divide."""
     n = rank_and_world()[1] if world is None else world
     model = max(int(model), 1)
-    if model > 1:
-        raise tensor_parallel_error(model)
     if data == -1:
         if n % model:
             raise ValueError(f"{n} devices not divisible by model={model}")
@@ -126,17 +129,48 @@ def mesh_shape(data: int = -1, model: int = 1, world: int | None = None):
     return data, model
 
 
+def mesh_coords(rank: int, model: int) -> tuple[int, int]:
+    """(data index, model index) of `rank` on a mesh whose model axis
+    has `model` ranks (row-major, as JAX reshapes its devices)."""
+    return rank // model, rank % model
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """This process's place on the (data, model) mesh: the axis sizes,
+    its coordinates and the process groups along each axis (None: the
+    default group, which is the data group where model == 1)."""
+    data: int
+    model: int
+    data_rank: int
+    model_rank: int
+    data_group: object = None
+    model_group: object = None
+
+
 def create_mesh(data: int = -1, model: int = 1, device="cuda"):
-    """A DeviceMesh of shape (data, model), dims named ('data', 'model'),
-    over the running process group; None for a single process without
-    one."""
+    """The Mesh of shape (data, model) over the running process group;
+    None for a single process without one. With model > 1 the data and
+    model groups are new groups on the default group's own backend
+    (gloo stays gloo for CUDA tensors, where a device mesh would pick
+    NCCL); every rank creates every group, in the same order."""
     data, model = mesh_shape(data, model)
     if not (dist.is_available() and dist.is_initialized()):
         return None
-    from torch.distributed.device_mesh import init_device_mesh
-
-    return init_device_mesh(torch.device(device).type, (data, model),
-                            mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+    rank = dist.get_rank()
+    d, m = mesh_coords(rank, model)
+    if model == 1:
+        return Mesh(data, model, d, m)
+    backend = dist.get_backend()
+    groups = {}
+    for j in range(model):                          # the data groups
+        ranks = [i * model + j for i in range(data)]
+        groups[("data", j)] = dist.new_group(ranks, backend=backend)
+    for i in range(data):                           # the model groups
+        ranks = [i * model + j for j in range(model)]
+        groups[("model", i)] = dist.new_group(ranks, backend=backend)
+    return Mesh(data, model, d, m, groups[("data", m)],
+                groups[("model", d)])
 
 
 def local_slice(n: int, rank: int, world: int) -> slice:
@@ -159,18 +193,23 @@ def shard_batch(batch, rank: int | None = None, world: int | None = None):
 
 
 class MeshManager:
-    """The data-parallel layout a Trainer runs under (the DDPManager
+    """The (data, model) layout a Trainer runs under (the DDPManager
     analog): the process group (started from torchrun's variables where
-    they are set), this process's rank, the (data, model) mesh, and the
-    helpers that place a batch and the state."""
+    they are set), this process's rank and mesh coordinates, the data
+    and model groups, and the helpers that place a batch and the
+    state."""
 
     def __init__(self, data: int = -1, model: int = 1, device="cuda"):
         setup_distributed(device)
         self.rank, self.world = rank_and_world()
         self.data_size, self.model_size = mesh_shape(data, model)
         self.mesh = create_mesh(data, model, device)
+        m = self.mesh or Mesh(1, 1, 0, 0)
+        self.data_rank, self.model_rank = m.data_rank, m.model_rank
+        self.data_group, self.model_group = m.data_group, m.model_group
         printT(f"mesh: data={self.data_size} model={self.model_size} "
-               f"(rank {self.rank} of {self.world})")
+               f"(rank {self.rank} of {self.world}: data {self.data_rank}, "
+               f"model {self.model_rank})")
 
     @property
     def distributed(self) -> bool:
@@ -188,9 +227,12 @@ class MeshManager:
 
     def loss_count(self):
         """The `count` the losses normalise by (losses/normalize.py): over
-        every rank's batch under a process group; None (this process's
-        batch, the losses' default) without one."""
-        return global_count(self.world) if self.distributed else None
+        the data group's batches (the model ranks of one data index hold
+        the same one) under a process group; None (this process's batch,
+        the losses' default) without one."""
+        if not self.distributed:
+            return None
+        return global_count(self.data_size, self.data_group)
 
     def replicate(self, module):
         """Every rank takes rank 0's parameters and buffers."""
@@ -199,12 +241,22 @@ class MeshManager:
         return replicate(module)
 
     def shard_state(self, state):
-        """Place a TrainState: its model (and EMA) replicated from rank 0
-        (mesh.model == 1; the tensor-parallel layout is item 12e)."""
+        """Place a TrainState: its model (and EMA) replicated from rank 0,
+        then with model > 1 JAX's tensor-parallel layout (parallel/
+        tensor_parallel.py): each wide layer keeps its model rank's
+        output channels, and so does the EMA; the optimizer's moments,
+        made at its first step, take the same shapes. The optimizer must
+        not have stepped yet."""
         from tpupose_torch.parallel.sharding import shard_params
+        from tpupose_torch.parallel.tensor_parallel import (local_part,
+                                                            shard_of)
 
-        shard_params(state.model, self.model_size)
-        if self.distributed and state.ema is not None:
-            for t in state.ema:
-                dist.broadcast(t.data, 0)
+        shard_params(state.model, self.model_size, self.model_rank,
+                     self.model_group)
+        if state.ema is not None:
+            if self.distributed:
+                for t in state.ema:
+                    dist.broadcast(t.data, 0)
+            state.ema = [local_part(e, shard_of(p)) for e, p in
+                         zip(state.ema, state.model.parameters())]
         return state

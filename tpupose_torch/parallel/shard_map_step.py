@@ -8,7 +8,10 @@ and every rank applies the identical update. The Trainer's path is
 DistributedDataParallel, which overlaps the same all-reduce with the
 backward; this form is for per-step control. A model with BatchNorm
 needs sync_bn.convert_sync_batchnorm for global statistics (JAX's
-shard_map form keeps per-shard statistics).
+shard_map form keeps per-shard statistics). On a (data, model) mesh
+both take the data group (MeshManager.data_group): the model ranks of
+one data index hold the same batch, and a sharded weight's gradient is
+averaged with the same block on the other data ranks.
 """
 
 from __future__ import annotations

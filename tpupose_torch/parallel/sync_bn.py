@@ -28,7 +28,10 @@ from tpupose_torch.models.remat import batch_stats_frozen
 
 
 class SyncBatchNorm2d(BatchNorm2d):
-    group = None            # the process group (None: the default one)
+    # the process group: the mesh's data group (None: the default one);
+    # under tensor parallelism the model ranks hold the same, replicated
+    # activation, so the statistics sum over the data ranks alone
+    group = None
 
     def forward(self, x):
         if not self.training or not (dist.is_available()
