@@ -1,0 +1,9 @@
+"""Host milliseconds from a step's start to the return of its last
+kernel launch (the profiler's runtime launch events), mean over the
+traced steps."""
+
+
+def read(s):
+    if not s.enqueue_s:
+        return None
+    return 1e3 * sum(s.enqueue_s) / len(s.enqueue_s)
