@@ -106,7 +106,7 @@ class TrainConfig:
     ckpt_interval: int = 1              # epochs between periodic checkpoints
     output_dir: str = "output"
     experiment: str = "default"
-    profile_dir: str = ""               # JAX package only (jax.profiler); unused by the port
+    profile_dir: str = ""               # non-empty: a torch.profiler chrome trace of epoch 0 step 10 written here
     tensorboard: bool = True            # tfevents scalars under <exp>/tb
     # > 0: track an EMA of the params (fused into the train step) and use
     # it for validation/metric eval/serving. 0 disables. Typical: 0.9998.

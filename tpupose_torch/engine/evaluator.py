@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from tpupose_torch._device import resolve_device
+from tpupose_torch.utils import trace
 
 # COCO-17 left/right keypoint pairs for flip-test
 COCO_FLIP_PAIRS = np.array([
@@ -52,6 +53,15 @@ COCO_FLIP_PAIRS = np.array([
 ])
 
 FAST_R50_INPUT_HW = (256, 192)
+
+
+def pageable_bytes(*arrays) -> int:
+    """Bytes of `arrays` in pageable host memory: numpy arrays and CPU
+    tensors that are not pinned (a copy from them to the card blocks the
+    host)."""
+    return sum(a.nbytes for a in arrays if isinstance(a, np.ndarray)
+               or (isinstance(a, torch.Tensor) and a.device.type == "cpu"
+                   and not a.is_pinned()))
 
 
 def visible_bbox_area(gt, vis):
@@ -157,15 +167,19 @@ class TopDownEvaluator:
         from tpupose_torch.ops.decode import merge_flip
         from tpupose_torch.ops.preprocess import normalize_images
 
-        if self.int8_engine is not None:
-            # flipping raw uint8 pixels == flipping normalized pixels
-            x, fwd = images, self.int8_engine.forward
-        else:
-            x, fwd = normalize_images(images), self.forward
-        hm = fwd(x).permute(0, 3, 1, 2).float()
+        with trace.span("serve.model"):
+            if self.int8_engine is not None:
+                # flipping raw uint8 pixels == flipping normalized pixels
+                x, fwd = images, self.int8_engine.forward
+            else:
+                x, fwd = normalize_images(images), self.forward
+            hm = fwd(x).permute(0, 3, 1, 2).float()
+            if self.flip_test:
+                hm_f = fwd(x.flip(2)).permute(0, 3, 1, 2).float()
         if self.flip_test:
-            hm_f = fwd(x.flip(2)).permute(0, 3, 1, 2).float()
-            hm = merge_flip(hm, hm_f, self.flip_pairs, shift=not self.udp)
+            with trace.span("serve.post"):
+                hm = merge_flip(hm, hm_f, self.flip_pairs,
+                                shift=not self.udp)
         return hm
 
     @torch.no_grad()
@@ -202,20 +216,26 @@ class TopDownEvaluator:
                                               get_affine_matrix)
         from tpupose_torch.ops.decode import decode_heatmaps
 
-        images = torch.as_tensor(images, device=self.device)
-        centers = torch.as_tensor(centers, dtype=torch.float32,
-                                  device=self.device)
-        scales = torch.as_tensor(scales, dtype=torch.float32,
-                                 device=self.device)
+        with trace.span("serve.h2d"):
+            if self.device.type == "cuda":
+                trace.count("serve.h2d_pageable_bytes",
+                            pageable_bytes(images, centers, scales))
+            images = torch.as_tensor(images, device=self.device)
+            centers = torch.as_tensor(centers, dtype=torch.float32,
+                                      device=self.device)
+            scales = torch.as_tensor(scales, dtype=torch.float32,
+                                     device=self.device)
         if self.family == "simcc":
             coords, scores = self.simcc_coords(images)
         else:
-            coords, scores = decode_heatmaps(self.heatmaps(images),
-                                             self.decode, self.blur_kernel,
-                                             self.sigma)
-        m = get_affine_matrix(centers, scales, 0.0, self.heatmap_size,
-                              udp=self.udp)
-        return affine_transform_points(coords, m), scores
+            hm = self.heatmaps(images)
+        with trace.span("serve.post"):
+            if self.family != "simcc":
+                coords, scores = decode_heatmaps(hm, self.decode,
+                                                 self.blur_kernel, self.sigma)
+            m = get_affine_matrix(centers, scales, 0.0, self.heatmap_size,
+                                  udp=self.udp)
+            return affine_transform_points(coords, m), scores
 
     def _fetch(self, coords, scores):
         """Start the copy of one batch's (B, K, 3) result to the host:

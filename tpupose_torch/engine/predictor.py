@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from tpupose_torch._device import resolve_device
+from tpupose_torch.utils import trace
 
 
 def to_host(tensors):
@@ -95,13 +96,16 @@ class HeatmapPredictor:
         centers/scales (B, 2) map results back to source coords; identity
         (crop coords) when omitted. Returns numpy (coords (B, K, 2),
         scores (B, K))."""
-        B, H, W = images.shape[0], images.shape[1], images.shape[2]
-        if centers is None:
-            centers = np.tile([[W / 2, H / 2]], (B, 1)).astype(np.float32)
-        if scales is None:
-            scales = np.tile([[W, H]], (B, 1)).astype(np.float32)
-        coords, scores = self._ev.step(images, centers, scales)
-        return coords.cpu().numpy(), scores.cpu().numpy()
+        with trace.root("serve.request"):
+            B, H, W = images.shape[0], images.shape[1], images.shape[2]
+            if centers is None:
+                centers = np.tile([[W / 2, H / 2]], (B, 1)).astype(
+                    np.float32)
+            if scales is None:
+                scales = np.tile([[W, H]], (B, 1)).astype(np.float32)
+            coords, scores = self._ev.step(images, centers, scales)
+            with trace.span("serve.d2h"):
+                return coords.cpu().numpy(), scores.cpu().numpy()
 
 
 class YoloPosePredictor:

@@ -46,6 +46,7 @@ from tpupose_torch.parallel.tensor_parallel import (full_state_dict,
                                                     full_tensor, gather_full,
                                                     load_full_state_dict,
                                                     local_part, shard_of)
+from tpupose_torch.utils import trace
 
 
 class TrainState:
@@ -220,10 +221,13 @@ def _augment(images, joints, vis, draws, use_affine: bool, grid_hw,
 def _backward_update(state: TrainState, loss) -> dict:
     """Backward (DDP averages the gradients over the ranks as it goes),
     clip + update; the loss reported is the ranks' mean."""
-    state.optimizer.zero_grad()
-    loss.backward()
-    grad_norm = state.apply_gradients()
-    return {"loss": state.global_mean(loss.detach()), "grad_norm": grad_norm}
+    with trace.span("train.backward"):
+        state.optimizer.zero_grad()
+        loss.backward()
+    with trace.span("train.update"):
+        grad_norm = state.apply_gradients()
+        return {"loss": state.global_mean(loss.detach()),
+                "grad_norm": grad_norm}
 
 
 def make_heatmap_train_step(loss_fn, color_jitter_strength: float = 0.0,
@@ -265,28 +269,36 @@ def make_heatmap_train_step(loss_fn, color_jitter_strength: float = 0.0,
         if use_affine and "target" in batch:
             raise ValueError("device affine augmentation needs raw joints, "
                              "not precomputed targets")
-        images = batch["images"]
-        if draws is None:
-            draws = state.local_draws(draws_for, images.shape[0],
-                                      images.device)
-        imgs, joints, vis = _augment(
-            images, batch.get("joints"), batch.get("visibility"), draws,
-            use_affine, heatmap_size, udp, color_jitter_strength)
-        if "target" in batch:
-            target, tw = batch["target"], batch.get("target_weight")
-        else:
-            if heatmap_size is None:
-                raise ValueError("need heatmap_size to render targets")
-            t, tw = gaussian_heatmaps(joints, vis, tuple(heatmap_size), sigma)
-            target = t.permute(0, 2, 3, 1)               # NKHW -> NHWK
-        model = state.train_module()
-        pred = model(imgs)
-        task = loss_fn(pred, target, tw)
+        with trace.root("train.step"):
+            return _heatmap_step(state, batch, draws)
+
+    def _heatmap_step(state, batch, draws):
+        with trace.span("train.input"):
+            images = batch["images"]
+            if draws is None:
+                draws = state.local_draws(draws_for, images.shape[0],
+                                          images.device)
+            imgs, joints, vis = _augment(
+                images, batch.get("joints"), batch.get("visibility"), draws,
+                use_affine, heatmap_size, udp, color_jitter_strength)
+            if "target" in batch:
+                target, tw = batch["target"], batch.get("target_weight")
+            else:
+                if heatmap_size is None:
+                    raise ValueError("need heatmap_size to render targets")
+                t, tw = gaussian_heatmaps(joints, vis, tuple(heatmap_size),
+                                          sigma)
+                target = t.permute(0, 2, 3, 1)           # NKHW -> NHWK
+        with trace.span("train.forward"):
+            model = state.train_module()
+            pred = model(imgs)
+            task = loss_fn(pred, target, tw)
+            if teacher is not None:
+                with torch.no_grad():
+                    t_hm = teacher.eval()(imgs)
+                kd = joints_mse_loss(pred, t_hm, tw, count=count)
         if teacher is None:
             return _backward_update(state, task)
-        with torch.no_grad():
-            t_hm = teacher.eval()(imgs)
-        kd = joints_mse_loss(pred, t_hm, tw, count=count)
         metrics = _backward_update(
             state, (1.0 - distill_weight) * task + distill_weight * kd)
         metrics.update(task_loss=state.global_mean(task.detach()),
@@ -316,16 +328,20 @@ def make_simcc_train_step(loss_fn, bins_hw, sigma: float = 6.0,
                                 affine_scale, color_jitter_strength)
 
     def train_step(state: TrainState, batch: dict, draws: dict = None):
-        images = batch["images"]
-        if draws is None:
-            draws = state.local_draws(draws_for, images.shape[0],
-                                      images.device)
-        imgs, joints, vis = _augment(
-            images, batch["joints"], batch["visibility"], draws, use_affine,
-            bins_hw, udp, color_jitter_strength)
-        tx, ty, tw = gaussian_1d_targets(joints, vis, bins_hw, sigma)
-        model = state.train_module()
-        return _backward_update(state, loss_fn(model(imgs), (tx, ty), tw))
+        with trace.root("train.step"):
+            with trace.span("train.input"):
+                images = batch["images"]
+                if draws is None:
+                    draws = state.local_draws(draws_for, images.shape[0],
+                                              images.device)
+                imgs, joints, vis = _augment(
+                    images, batch["joints"], batch["visibility"], draws,
+                    use_affine, bins_hw, udp, color_jitter_strength)
+                tx, ty, tw = gaussian_1d_targets(joints, vis, bins_hw, sigma)
+            with trace.span("train.forward"):
+                model = state.train_module()
+                loss = loss_fn(model(imgs), (tx, ty), tw)
+            return _backward_update(state, loss)
 
     train_step.draws_for = draws_for
     return train_step

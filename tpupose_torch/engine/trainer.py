@@ -25,11 +25,13 @@ PCKh (K > 9), MPJPE, AUC, EPE in source pixels; bottom-up:
 `eval.int8`), heatmap distillation from a frozen teacher
 (`train.distill_cfg`, `train.distill_ckpt`), `train` with the
 SIGTERM/SIGINT checkpoint guard, `save_checkpoint` and
-`load_checkpoint`, and pretrained backbone weights (`model.pretrained`, a
-torch checkpoint loaded by models/pretrained.load_pretrained and copied
-into the EMA), and data parallelism: under torchrun (`cfg.mesh`,
-Builder.set_device) the model's BatchNorms synchronise their statistics
-over the ranks (parallel/sync_bn.py) and the steps run it through
+`load_checkpoint`, `train.profile_dir` (step 10 of epoch 0 under
+torch.profiler, its chrome trace written there), pretrained backbone
+weights (`model.pretrained`, a torch checkpoint loaded by
+models/pretrained.load_pretrained and copied into the EMA), and data
+parallelism: under torchrun (`cfg.mesh`, Builder.set_device) the
+model's BatchNorms synchronise their statistics over the ranks
+(parallel/sync_bn.py) and the steps run it through
 DistributedDataParallel; train.batch_size is the global batch, each
 rank loading its contiguous slice of it, and a step's random draws
 (device affine, color jitter) are drawn for the global batch and sliced,
@@ -306,8 +308,12 @@ class Trainer:
         n_img = 0
         metrics = None
         logged = True
+        profile_dir = self.cfg.train.profile_dir
         for step, db in enumerate(self._prefetched(self.train_loader)):
-            metrics = self.train_step(self.state, db)
+            if profile_dir and epoch == 0 and step == 10:
+                metrics = self._profiled_step(db, profile_dir)
+            else:
+                metrics = self.train_step(self.state, db)
             self._check_exit_signal()
             n_img += db["images"].shape[0] * self.state.dp_world
             logged = ((step + 1) % self.cfg.train.log_interval == 0
@@ -330,6 +336,24 @@ class Trainer:
         self.tb.add_scalar("train/img_per_s", self.img_per_s, self.state.step)
         return meters["loss"].avg if "loss" in meters._meters \
             else float("inf")
+
+    def _profiled_step(self, db, profile_dir: str) -> dict:
+        """One train step under torch.profiler (CPU, and CUDA on the
+        card), its chrome trace written to `profile_dir` (the program's
+        `tpupose.train.*` spans among its ranges)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        with profile(activities=acts) as prof:
+            metrics = self.train_step(self.state, db)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        os.makedirs(profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            profile_dir, f"train_step_rank{self.mesh_mgr.rank}.json"))
+        return metrics
 
     @torch.no_grad()
     def _yolo_val_loss(self, model, db):
