@@ -72,7 +72,9 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
      data.device_affine=true (SimpleBaseline-R50 256x192, 17 keypoints,
      bf16 autocast over float32 weights, Adam, B=64, synthetic data),
      cut to 3 of its 140 epochs; the warp kernel's count is set to 0
-     before and must equal the number of train steps after; every loss
+     before and must equal the number of train steps that ran host code
+     after (eager or captured: a replay of the step's CUDA graph launches
+     nothing from the host), and some steps must replay; every loss
      finite, the last epoch's mean loss below the first's, validate()
      finite, and a fresh Trainer resumes the saved checkpoint to the same
      step with equal parameters. Then one float32 train step (TF32 off,
@@ -105,8 +107,10 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
      AdamW lr 5e-4 wd 0.1, multistep, B=64, synthetic data) cut to 3 of
      its 210 epochs and 1 warmup epoch (of 3: the lr would still be
      ramping from 0); the K8/K8b counts are set to 0 before, and every
-     train step must launch exactly 12 of each (K8b 12 x steps in all;
-     validate() adds forwards); losses finite and falling, validate()
+     train step that runs host code must launch exactly 12 of each, a
+     replay of the step's CUDA graph none, and some steps must replay
+     (K8b 12 x the steps that ran host code in all; validate() adds
+     forwards); losses finite and falling, validate()
      finite, a fresh Trainer resumes to the same step with equal
      parameters. Then one bf16-autocast step of the full model at B=16
      from seeded weights (O(1) layer scales) on the K8/K8b route against
@@ -132,7 +136,8 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
      annotations) under build/; the decode path that ran (native or PIL)
      and the train and valid loaders' img/s; one training epoch with
      data.name=coco data.device_affine=true (B=16), in which the warp
-     kernel's launches must equal the train steps; evaluate() through
+     kernel's launches must equal the train steps that ran host code;
+     evaluate() through
      CocoTopDownDataset with eval.dump_results, whose results JSON must
      hold one entry per kept instance, K1-K4 launching, with its img/s;
   12. (after 11, in a second child process with 13, 13b and 14) HRNet-W32
@@ -140,7 +145,8 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
      tpupose_torch/configs/method/hrnet_w32.yaml (256x192, 17 keypoints, bf16
      autocast over float32 weights, Adam, multistep, B=64, device affine)
      on synthetic data, cut to 3 of its 210 epochs: the warp kernel's
-     count, set to 0 before, equals the train steps after; losses finite
+     count, set to 0 before, equals the train steps that ran host code
+     after, and some replay the step's CUDA graph; losses finite
      and falling; a fresh Trainer resumes to the same step with equal
      parameters; one float32 step (TF32 off, fixed draws, noise pixels)
      at B=2 on the card against the same step on the CPU in float32 and
@@ -148,7 +154,7 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
      printed for flax's init on the synthetic crops, where the CPU's
      float32 is further from float64; the B=64 train step's img/s and
      peak memory with and without train.remat; one COCO-format epoch
-     (B=16) on a seeded set, warp launches == steps;
+     (B=16) on a seeded set, warp launches == steps that ran host code;
   13. HRNet-W48 384x288 evaluation: Trainer.evaluate() with the config
      of hrnet_w48_384.yaml (flip, DARK, blur_kernel 17, sigma 3.0) on
      the Builder's synthetic valid crops: exactly one K4 launch per eval
@@ -223,7 +229,8 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
      device affine): 18a 8 distilled steps through Trainer from a
      HRNet-W32 teacher (hrnet_w32.yaml) saved by the port's
      CheckpointManager and read back through train.distill_ckpt
-     "<dir>@best": exactly one K7 launch a step, finite task and
+     "<dir>@best": exactly one K7 launch a step that ran host code and none a
+     replay of the step's CUDA graph, some steps replaying, finite task and
      distillation losses, the teacher its checkpoint, frozen; step img/s
      with and without the teacher, peak memory, each step's device busy
      ms and idle share under torch.profiler; 18b grad_accum_steps 4
@@ -391,6 +398,34 @@ def cuda_ms(fn, warmup=3, iters=20):
 
 
 PROFILER_SESSIONS = 8
+
+
+def clear_trace():
+    """Empty the port's span records (tpupose_torch/utils/trace.py), so
+    that `step_replays` reads the steps that follow."""
+    from tpupose_torch.utils import trace
+
+    trace._records.clear()
+
+
+def step_replays() -> list:
+    """For each train step since `clear_trace`, in order: 1 where it
+    replayed from a CUDA graph without running the step's host code (its
+    root's `train.graph_replay` count, engine/step_graphs.py, and no
+    `train.forward` span outside `train.replay`: the capture's call runs the
+    body once, then replays), 0 where it ran eagerly or was captured. A
+    kernel wrapper's launch counter counts launches from the host, which a
+    replay makes none of: the launch checks hold the counters to the steps
+    that ran host code, and the graphed steps equal the eager ones bit for
+    bit (tests/test_torch_cuda.py, which also counts a replay's kernels in
+    the profiler's records)."""
+    from tpupose_torch.utils import trace
+
+    recs = list(trace._records)
+    body = {r[1] for r in recs
+            if r[0] == "train.forward" and r[2] != "train.replay"}
+    return [int(bool(r[7].get("train.graph_replay")) and r[1] not in body)
+            for r in recs if r[0] == "train.step" and r[7] is not None]
 
 
 def device_ms(fn, iters=20, label="?"):
@@ -914,27 +949,34 @@ def vit_train_phase(results):
     tr.train_step = recording_step
     torch.cuda.synchronize()
     flash_attention.launches = flash_attention_backward.launches = 0
+    clear_trace()
     t0 = time.perf_counter()
     tr.train()
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     n_steps = tr.state.step
     n8, n8b = flash_attention.launches, flash_attention_backward.launches
+    replays = step_replays()
+    n_host = len(replays) - sum(replays)
     losses = torch.stack(step_losses).float().cpu()
     spe = tr.steps_per_epoch
     first, last = losses[:spe].mean().item(), losses[-spe:].mean().item()
     log(f"trainer (ViTPose-S 256x192, B=64, bf16 autocast, AdamW): "
-        f"{n_steps} steps in {train_s:.1f} s; K8 launches {n8} (in the "
-        f"train steps {sum(a for a, _ in step_launches)}, the rest in "
-        f"validate), K8b launches {n8b}; losses "
+        f"{n_steps} steps in {train_s:.1f} s ({sum(replays)} replayed from "
+        f"the CUDA graph); K8 launches {n8} (in the {n_host} train steps "
+        f"that ran host code {sum(a for a, _ in step_launches)}, the rest "
+        f"in validate), K8b launches {n8b}; losses "
         f"{[round(v, 6) for v in losses.tolist()]}; epoch mean {first:.6f} "
         f"-> {last:.6f}; trainer img/s (last epoch) {tr.img_per_s:.1f}")
-    if n_steps != 3 * spe or any(c != (12, 12) for c in step_launches) \
-            or n8b != 12 * n_steps:
+    if n_steps != 3 * spe or len(replays) != n_steps or not sum(replays) \
+            or any(c != ((0, 0) if r else (12, 12))
+                   for c, r in zip(step_launches, replays)) \
+            or n8b != 12 * n_host:
         raise AssertionError(f"ViTPose train steps {n_steps} (expected "
-                             f"{3 * spe}) with K8/K8b launches per step "
-                             f"{step_launches} (expected 12 each), K8b "
-                             f"{n8b} in all")
+                             f"{3 * spe}, replayed {replays}) with K8/K8b "
+                             f"launches per step {step_launches} (expected "
+                             f"12 each where not replayed), K8b {n8b} in "
+                             f"all")
     if not (torch.isfinite(losses).all() and last < first):
         raise AssertionError("ViTPose training losses not finite or not "
                              "falling")
@@ -942,9 +984,10 @@ def vit_train_phase(results):
     if not np.isfinite(val):
         raise AssertionError(f"ViTPose validate() not finite: {val}")
     results["flash_attention"].update(launches_train=n8,
-                                      launches_per_train_step=12)
+                                      launches_per_host_step=12)
     results["flash_attention_bwd"].update(launches=n8b, train_steps=n_steps,
-                                          launches_per_train_step=12)
+                                          replayed_steps=sum(replays),
+                                          launches_per_host_step=12)
     tr2 = Trainer(cfg, device="cuda")
     if tr2.load_checkpoint() != n_steps or tr2.state.step != n_steps:
         raise AssertionError("ViTPose resume did not restore the step")
@@ -1025,6 +1068,10 @@ def vit_train_phase(results):
     bb = {k: v.cuda() for k, v in synthetic_batch(B, seed=12).items()}
 
     def steps_per_s(n=10):
+        # a route set on the model's modules drops the step's CUDA graphs
+        # by itself; the SDPA route, a module-level function swapped in,
+        # does not: capture each route anew (warm-up, capture)
+        fn.graphs.drop()
         for _ in range(2):
             fn(tstate, bb)
         torch.cuda.synchronize()
@@ -1039,6 +1086,7 @@ def vit_train_phase(results):
     rates, peaks = {}, {}
     for remat in (False, True):
         model.backbone.remat = remat
+        fn.graphs.drop()                # an eager step's peak
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         fn(tstate, bb)
@@ -1295,14 +1343,20 @@ def coco_phase(results):
     ips_valid = loader_ips(trc.valid_loader)
     torch.cuda.synchronize()
     affine_warp.launches = 0
+    clear_trace()
     trc.train()
     torch.cuda.synchronize()
     n_steps, n_warp = trc.state.step, affine_warp.launches
-    log(f"COCO training epoch (device affine, B=16): {n_steps} steps, warp "
-        f"launches {n_warp}")
-    if n_steps != trc.steps_per_epoch or n_warp != n_steps:
-        raise AssertionError(f"warp launches {n_warp} != train steps "
-                             f"{n_steps} ({trc.steps_per_epoch} expected)")
+    replays = step_replays()
+    n_host = len(replays) - sum(replays)
+    log(f"COCO training epoch (device affine, B=16): {n_steps} steps "
+        f"({sum(replays)} replayed from the CUDA graph), warp launches "
+        f"{n_warp} in the {n_host} that ran host code")
+    if n_steps != trc.steps_per_epoch or len(replays) != n_steps \
+            or n_warp != n_host:
+        raise AssertionError(f"warp launches {n_warp} != eager or captured "
+                             f"train steps {n_host} of {n_steps} "
+                             f"({trc.steps_per_epoch} expected)")
     results["affine_warp"]["launches_coco_train"] = n_warp
     for wfn in wrappers.values():
         wfn.launches = 0
@@ -1366,11 +1420,13 @@ HR_DIR = ROOT / "build" / "chip_smoke_hrnet"
 
 def _step_ips(step, state, batch, n=10):
     """img/s of `n` train steps on a device batch after 2 warm-up steps,
-    and the peak device memory (GiB) of those steps."""
+    and the peak device memory (GiB) from the first warm-up step on: a
+    heatmap step's first call runs eagerly and its second captures the
+    CUDA graph that the timed steps replay, allocating nothing."""
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
         step(state, batch)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(n):
         met = step(state, batch)
@@ -1470,22 +1526,29 @@ def hrnet_train_phase(results):
     tr.train_step = recording_step
     torch.cuda.synchronize()
     affine_warp.launches = 0
+    clear_trace()
     t0 = time.perf_counter()
     tr.train()
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     n_steps, n_warp = tr.state.step, affine_warp.launches
+    replays = step_replays()
+    n_host = len(replays) - sum(replays)
     losses = torch.stack(step_losses).float().cpu()
     spe = tr.steps_per_epoch
     first, last = losses[:spe].mean().item(), losses[-spe:].mean().item()
     log(f"phase 12 trainer (HRNet-W32 256x192, B=64, bf16 autocast, Adam, "
-        f"device affine): {n_steps} steps in {train_s:.1f} s, warp launches "
-        f"{n_warp}; losses {[round(v, 6) for v in losses.tolist()]}; epoch "
-        f"mean {first:.6f} -> {last:.6f}; trainer img/s (last epoch) "
+        f"device affine): {n_steps} steps in {train_s:.1f} s "
+        f"({sum(replays)} replayed from the CUDA graph), warp launches "
+        f"{n_warp} in the {n_host} that ran host code; losses "
+        f"{[round(v, 6) for v in losses.tolist()]}; epoch mean "
+        f"{first:.6f} -> {last:.6f}; trainer img/s (last epoch) "
         f"{tr.img_per_s:.1f}")
-    if n_warp != n_steps or n_steps != 3 * spe:
-        raise AssertionError(f"warp launches {n_warp} != train steps "
-                             f"{n_steps} (expected {3 * spe})")
+    if n_steps != 3 * spe or len(replays) != n_steps or n_warp != n_host \
+            or not sum(replays):
+        raise AssertionError(f"warp launches {n_warp} != eager or captured "
+                             f"train steps {n_host} of {n_steps} (expected "
+                             f"{3 * spe}, some replayed: {replays})")
     if not (torch.isfinite(losses).all() and last < first):
         raise AssertionError("HRNet training losses not finite or not "
                              "falling")
@@ -1568,15 +1631,21 @@ def hrnet_train_phase(results):
         device="cuda")
     torch.cuda.synchronize()
     affine_warp.launches = 0
+    clear_trace()
     t0 = time.perf_counter()
     trc.train()
     torch.cuda.synchronize()
     n_steps, n_warp = trc.state.step, affine_warp.launches
+    replays = step_replays()
+    n_host = len(replays) - sum(replays)
     log(f"HRNet-W32 COCO-format epoch ({n_kept} instances, B=16, device "
-        f"affine): {n_steps} steps, warp launches {n_warp}, "
-        f"{time.perf_counter() - t0:.1f} s")
-    if n_steps != trc.steps_per_epoch or n_warp != n_steps or n_steps < 1:
-        raise AssertionError("HRNet COCO epoch: warp launches != steps")
+        f"affine): {n_steps} steps ({sum(replays)} replayed from the CUDA "
+        f"graph), warp launches {n_warp} in the {n_host} that ran host "
+        f"code, {time.perf_counter() - t0:.1f} s")
+    if n_steps != trc.steps_per_epoch or len(replays) != n_steps \
+            or n_warp != n_host or n_steps < 1:
+        raise AssertionError("HRNet COCO epoch: warp launches != eager or "
+                             "captured steps")
     del trc
     torch.cuda.empty_cache()
     log(f"phase 12 seconds: {time.perf_counter() - t_phase:.1f}")
@@ -3163,19 +3232,24 @@ def p18_distill(results, card: str):
     log_, step_fn = _recorded_steps(tr, (affine_warp,))
     torch.cuda.synchronize()
     affine_warp.launches = 0
+    clear_trace()
     t0 = time.perf_counter()
     tr.train()
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     k7 = affine_warp.launches
+    replays = step_replays()
     per_step = {k: [float(m[k]) for m, _ in log_] for k in log_[0][0]}
     bad = [k for k, v in per_step.items() if not np.all(np.isfinite(v))]
-    if (tr.state.step != 8 or len(log_) != 8 or k7 != 8 or bad
-            or any(c != (1,) for _, c in log_)
+    if (tr.state.step != 8 or len(log_) != 8 or len(replays) != 8
+            or not sum(replays) or k7 != 8 - sum(replays) or bad
+            or any(c != ((0,) if r else (1,))
+                   for (_, c), r in zip(log_, replays))
             or not {"task_loss", "kd_loss"} <= set(per_step)):
-        raise AssertionError(f"phase 18a: {tr.state.step} steps, K7 "
-                             f"launches {k7} ({[c for _, c in log_]}), "
-                             f"non-finite {bad}, metrics {sorted(per_step)}")
+        raise AssertionError(f"phase 18a: {tr.state.step} steps (replayed "
+                             f"{replays}), K7 launches {k7} "
+                             f"({[c for _, c in log_]}), non-finite {bad}, "
+                             f"metrics {sorted(per_step)}")
     if any(not torch.equal(v, want[k])
            for k, v in teacher.state_dict().items()):
         raise AssertionError("phase 18a: training moved the teacher")
@@ -3195,7 +3269,8 @@ def p18_distill(results, card: str):
     log(f"phase 18a distillation (R50 student, HRNet-W32 teacher from its "
         f"@best checkpoint, B={db['images'].shape[0]}, device affine) on "
         f"{card}: 8 steps in "
-        f"{train_s:.1f} s, K7 launches {k7} (one a step); per step "
+        f"{train_s:.1f} s ({sum(replays)} replayed from the CUDA graph), K7 "
+        f"launches {k7} (one a step that ran host code); per step "
         f"{json.dumps({k: [round(x, 6) for x in v] for k, v in per_step.items()})}"
         f"; step img/s with the teacher {ips:.1f} (peak {peak:.2f} GiB), "
         f"without {ips0:.1f} (peak {peak0:.2f} GiB); under torch.profiler "
@@ -4861,6 +4936,13 @@ def _p21_train(yaml_name: str, over: dict, model: int, label: str,
         return step()
 
     opt.step = recording
+    # the recording reads every step's gradients on the host, which a CUDA
+    # graph's replay would skip (and a capture refuses): the model = 1
+    # run, whose step would replay one, stays eager
+    import tpupose_torch.engine.train_state as ts_mod
+
+    blocker = ts_mod.graph_blocker
+    ts_mod.graph_blocker = lambda state: "recorded"
     batches = iter(tr._prefetched(tr.train_loader))
     losses, ms, coll, states = [], [], {}, []
     _p19_reset()
@@ -4882,6 +4964,7 @@ def _p21_train(yaml_name: str, over: dict, model: int, label: str,
                            if v.is_floating_point()})
     counts = _p19_counts()
     opt.step = step
+    ts_mod.graph_blocker = blocker
     if not all(np.isfinite(losses)):
         raise AssertionError(f"phase 21 {label}: losses {losses}")
     sharded = [n for n, p in tr.model.named_parameters()
@@ -5720,29 +5803,36 @@ def main() -> int:
     tr.train_step = recording_step
     torch.cuda.synchronize()
     affine_warp.launches = 0
+    clear_trace()
     t0 = time.perf_counter()
     tr.train()
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     n_steps, n_warp = tr.state.step, affine_warp.launches
+    replays = step_replays()
+    n_host = len(replays) - sum(replays)
     losses = torch.stack(step_losses).float().cpu()
     spe = tr.steps_per_epoch
     first, last = losses[:spe].mean().item(), losses[-spe:].mean().item()
     log(f"trainer (R50 256x192, B=64, bf16 autocast, Adam, device affine): "
-        f"{n_steps} steps in {train_s:.1f} s, warp launches {n_warp}; "
-        f"losses {[round(v, 6) for v in losses.tolist()]}; epoch mean "
-        f"{first:.6f} -> {last:.6f}; trainer img/s (last epoch) "
+        f"{n_steps} steps in {train_s:.1f} s ({sum(replays)} replayed from "
+        f"the CUDA graph), warp launches {n_warp} in the {n_host} that ran "
+        f"host code; losses {[round(v, 6) for v in losses.tolist()]}; epoch "
+        f"mean {first:.6f} -> {last:.6f}; trainer img/s (last epoch) "
         f"{tr.img_per_s:.1f}")
-    if n_warp != n_steps or n_steps != 3 * spe:
-        raise AssertionError(f"warp launches {n_warp} != train steps "
-                             f"{n_steps} (expected {3 * spe})")
+    if n_steps != 3 * spe or len(replays) != n_steps or n_warp != n_host \
+            or not sum(replays):
+        raise AssertionError(f"warp launches {n_warp} != eager or captured "
+                             f"train steps {n_host} of {n_steps} (expected "
+                             f"{3 * spe}, some replayed: {replays})")
     if not (torch.isfinite(losses).all() and last < first):
         raise AssertionError("training losses not finite or not falling")
     val = tr.validate()
     if not np.isfinite(val):
         raise AssertionError(f"validate() not finite: {val}")
     results["affine_warp"].update(launches=n_warp, train_steps=n_steps,
-                                  launches_per_train_step=n_warp / n_steps)
+                                  replayed_steps=sum(replays),
+                                  launches_per_host_step=n_warp / n_host)
     tr2 = Trainer(cfg, device="cuda")
     if tr2.load_checkpoint() != n_steps or tr2.state.step != n_steps:
         raise AssertionError("resume did not restore the step")

@@ -1605,3 +1605,307 @@ def test_tensor_parallel_r50_step_over_nccl_equals_model1(tmp_path):
     states = [[r["state"][k] for k in keys] for r in (tp, one, hi)]
     assert worst(*states) <= 1.0
     assert worst([one["before"][k] for k in keys], *states[1:]) > 1.0
+
+
+# -- the heatmap train step from a CUDA graph ---------------------------------
+#
+# Tolerance: a replay launches the kernels the eager step launched, on the
+# same tensors, so graphed and eager steps of one update are bit-equal
+# (cuDNN held to its deterministic algorithms, so that its choice cannot
+# differ between the two). The update itself is not today's eager one:
+# the fused update a graph holds computes Adam's bias corrections on the
+# card, where the eager foreach one takes them from the host in float64,
+# and SGD's step in its own order. Where
+# a gradient is near zero, Adam's normalised step turns that rounding into
+# a step of the other sign, so against the float update six R50 steps
+# agree in their losses to 1e-2 (5e-4 to 2e-3 read on the card, float32
+# and bf16), their parameters' change only to 0.05-0.30 in norm; one
+# update from the same gradients agrees to 1e-5.
+
+@pytest.fixture
+def graph_gpu(gpu):
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield gpu
+    torch.backends.cudnn.deterministic = det
+
+
+def _r50_train_state(gpu, name="adam", ema=0.0, schedule=None):
+    from tpupose_torch.configs.default import OptimizerConfig
+    from tpupose_torch.engine.optimizers import make_optimizer
+    from tpupose_torch.engine.train_state import TrainState
+    from tpupose_torch.models.simple_baseline import SimpleBaseline
+
+    model = SimpleBaseline("resnet50", 17, dtype=torch.bfloat16, device=gpu,
+                           param_dtype=torch.float32,
+                           generator=torch.Generator().manual_seed(3))
+    opt = make_optimizer(OptimizerConfig(name=name, lr=1e-3),
+                         model.named_parameters(), grad_clip_norm=10.0,
+                         schedule=schedule)
+    return TrainState(model, opt, ema_decay=ema)
+
+
+def _r50_batches(gpu, sizes, seed=7):
+    g = torch.Generator().manual_seed(seed)
+    return [{"images": torch.randint(0, 256, (b, 256, 192, 3), generator=g,
+                                     dtype=torch.uint8).to(gpu),
+             "joints": (torch.rand((b, 17, 2), generator=g)
+                        * torch.tensor([44.0, 60.0]) + 2.0).to(gpu),
+             "visibility": (torch.rand((b, 17), generator=g) < 0.85)
+             .float().to(gpu) * 2.0} for b in sizes]
+
+
+def _heatmap_step_fn():
+    from tpupose_torch.engine.train_state import make_heatmap_train_step
+    from tpupose_torch.losses.heatmap import joints_mse_loss
+
+    return make_heatmap_train_step(
+        joints_mse_loss, color_jitter_strength=0.2, heatmap_size=(64, 48),
+        affine_rotation=40.0, affine_scale=0.3)
+
+
+def _train_run(state, batches, monkeypatch=None, graphed=True,
+               between=None):
+    """Steps over `batches` on the draws of each step's index: through the
+    graph, or eagerly (the blocker patched) on the same update, made
+    capturable, its schedules filled before each step as the graph path
+    fills them. `between(k, state)` runs before step k. Returns (losses,
+    grad norms, replay counts a root)."""
+    import tpupose_torch.engine.train_state as ts
+    from tpupose_torch.utils import trace
+
+    if not graphed:
+        monkeypatch.setattr(ts, "graph_blocker", lambda s: "eager")
+        state.make_capturable()
+    step = _heatmap_step_fn()
+    trace._records.clear()
+    losses, norms = [], []
+    for k, b in enumerate(batches):
+        if between is not None:
+            between(k, state)
+            if not graphed:
+                state.make_capturable()
+        if not graphed:
+            state.load_schedules()
+        m = step(state, b, step.draws_for(k, b["images"].shape[0],
+                                          b["images"].device))
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+    torch.cuda.synchronize()
+    if not graphed:
+        monkeypatch.undo()
+    replays = [r[7].get("train.graph_replay", 0) for r in trace._records
+               if r[7] is not None]
+    return torch.stack(losses), torch.stack(norms), replays
+
+
+def _assert_train_states_equal(a, b):
+    for (n, x), y in zip(a.model.state_dict().items(),
+                         b.model.state_dict().values()):
+        assert torch.equal(x, y), n
+    for x, y in zip(a.ema or [], b.ema or []):
+        assert torch.equal(x, y)
+    for p, q in zip(a.model.parameters(), b.model.parameters()):
+        sa, sb = a.optimizer.inner.state[p], b.optimizer.inner.state[q]
+        for k in sa:
+            assert torch.equal(sa[k], sb[k]), k
+    assert (a.step, a.optimizer.count) == (b.step, b.optimizer.count)
+
+
+def _warmup_lr(t):
+    return 1e-3 * min(1.0, (t + 1) / 5.0)
+
+
+@pytest.mark.parametrize("name,ema,schedule", [
+    ("adam", 0.0, None), ("adamw", 0.0, _warmup_lr), ("adam", 0.999, None),
+    ("nesterov", 0.0, _warmup_lr)], ids=["adam", "adamw_warmup_lr", "ema",
+                                         "nesterov_warmup_lr"])
+def test_graphed_heatmap_step_equals_eager(graph_gpu, monkeypatch, name, ema,
+                                           schedule):
+    """Six R50 steps (B = 8, 256x192, bf16 autocast over float32 masters,
+    device affine and jitter), the first eager, the second captured, the
+    rest replayed, against the same steps eagerly on the same update:
+    losses, grad norms, parameters, BatchNorm statistics, the optimizer's
+    moments and the EMA bit-equal; the lr a warm-up schedule changes
+    across the replays read from the card. Against the float update of
+    today's eager step, within the tolerance above."""
+    import tpupose_torch.engine.train_state as ts
+
+    batches = _r50_batches(graph_gpu, [8] * 6)
+    g = _r50_train_state(graph_gpu, name, ema, schedule)
+    got = _train_run(g, batches)
+    assert got[2] == [0, 1, 1, 1, 1, 1]
+    e = _r50_train_state(graph_gpu, name, ema, schedule)
+    want = _train_run(e, batches, monkeypatch, graphed=False)
+    assert want[2] == [0] * 6
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    _assert_train_states_equal(g, e)
+    lr = g.optimizer.inner.param_groups[0]["lr"]
+    want_lr = schedule(5) if schedule else 1e-3
+    assert float(lr) == pytest.approx(want_lr, rel=1e-7)
+    if name != "adam" or ema:
+        return
+    f = _r50_train_state(graph_gpu, name, ema, schedule)
+    monkeypatch.setattr(ts, "graph_blocker", lambda s: "eager")
+    step = _heatmap_step_fn()
+    losses = torch.stack([
+        step(f, b, step.draws_for(k, 8, graph_gpu))["loss"]
+        for k, b in enumerate(batches)])
+    torch.testing.assert_close(got[0], losses, rtol=1e-2, atol=0)
+
+
+@pytest.mark.parametrize("name", ["adam", "adamw", "nesterov"])
+def test_capturable_update_matches_the_float_update(graph_gpu, name):
+    """Three updates of the R50's parameters from the same gradients under
+    a warm-up schedule with an EMA of 0.99, made capturable (lr and decay
+    read from the card, the fused update) against the float update of the
+    eager step: parameters and EMA within 1e-5 relative (rounding alone,
+    no network in between)."""
+    states = [_r50_train_state(graph_gpu, name, 0.99, _warmup_lr)
+              for _ in range(2)]
+    states[1].make_capturable()
+    g = torch.Generator(device=graph_gpu).manual_seed(11)
+    for _ in range(3):
+        # in the parameters' memory format, as autograd makes gradients
+        grads = [torch.empty_like(p).normal_(generator=g) * 1e-2
+                 for p in states[0].model.parameters()]
+        for st in states:
+            for p, gr in zip(st.model.parameters(), grads):
+                p.grad = gr.clone()
+            st.load_schedules()
+            st.apply_gradients()
+    a, b = states
+    for x, y in zip(list(a.model.parameters()) + a.ema,
+                    list(b.model.parameters()) + b.ema):
+        torch.testing.assert_close(y, x, rtol=1e-5, atol=1e-8)
+
+
+def test_graphed_heatmap_step_batch_shape_change(graph_gpu, monkeypatch):
+    """B = 8, 8, then 4, 4 (a second signature: eager, then its own
+    graph), then 8 and 4 again (each replays its graph): equal to the
+    eager steps bit for bit."""
+    sizes = [8, 8, 4, 4, 8, 4]
+    batches = _r50_batches(graph_gpu, sizes)
+    g = _r50_train_state(graph_gpu)
+    got = _train_run(g, batches)
+    assert got[2] == [0, 1, 0, 1, 1, 1]
+    e = _r50_train_state(graph_gpu)
+    want = _train_run(e, batches, monkeypatch, graphed=False)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    _assert_train_states_equal(g, e)
+
+
+def test_graphed_heatmap_step_load_state_dict_mid_run(graph_gpu,
+                                                      monkeypatch):
+    """A state saved after step 2 and loaded before step 5 (of 7): the
+    load drops the graph, step 5 runs eagerly, step 6 captures anew, and
+    the run equals the eager one doing the same, bit for bit; the saved
+    state is in the eager format (lr floats, step counts on the host)."""
+    import io
+
+    batches = _r50_batches(graph_gpu, [8] * 7)
+
+    def saver():
+        saved = {}
+
+        def between(k, state):
+            if k == 2:
+                buf = io.BytesIO()
+                torch.save(state.state_dict(), buf)
+                saved["sd"] = buf.getvalue()
+            if k == 4:
+                state.load_state_dict(torch.load(io.BytesIO(saved["sd"]),
+                                                 weights_only=False))
+        return between, saved
+
+    between, saved = saver()
+    g = _r50_train_state(graph_gpu)
+    got = _train_run(g, batches, between=between)
+    assert got[2] == [0, 1, 1, 1, 0, 1, 1]
+    sd = torch.load(io.BytesIO(saved["sd"]), weights_only=False)
+    inner = sd["optimizer"]["inner"]
+    assert all(type(grp["lr"]) is float and not grp["capturable"]
+               for grp in inner["param_groups"])
+    assert all(st["step"].device.type == "cpu"
+               for st in inner["state"].values())
+    between, _ = saver()
+    e = _r50_train_state(graph_gpu)
+    want = _train_run(e, batches, monkeypatch, graphed=False,
+                      between=between)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    _assert_train_states_equal(g, e)
+
+
+def test_planted_noop_update_is_captured_too(graph_gpu):
+    """A no-op planted on the inner optimizer's step before the first
+    step (the benchmark's `unchanged` fault) is captured with the rest:
+    after an eager step, a capture and a replay every parameter is
+    bit-unchanged, while the BatchNorm statistics moved."""
+    batches = _r50_batches(graph_gpu, [8] * 3)
+    s = _r50_train_state(graph_gpu)
+    s.optimizer.inner.step = lambda *a, **k: None
+    p0 = [p.detach().clone() for p in s.model.parameters()]
+    b0 = s.model.backbone.bn1.running_mean.clone()
+    assert _train_run(s, batches)[2] == [0, 1, 1]
+    assert all(torch.equal(p, q) for p, q in zip(s.model.parameters(), p0))
+    assert not torch.equal(s.model.backbone.bn1.running_mean, b0)
+    assert s.step == 3
+
+
+def test_graph_replay_counter_and_launches(graph_gpu, monkeypatch):
+    """The `train.graph_replay` counter is 1 on the roots of replayed steps
+    (the capture's call replays too) and absent on eager ones; a blocked
+    state never replays; K7 runs once a step on the device, replays
+    included (the profiler's kernel records, which CUPTI writes for each
+    kernel of a graph), while its wrapper's counter counts the launches
+    from the host alone: the eager step and the capture; a replayed
+    step's spans are train.input and train.replay."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import tpupose_torch.engine.train_state as ts
+    from tpupose_torch.ops.cuda_warp import affine_warp
+    from tpupose_torch.utils import trace
+
+    batches = _r50_batches(graph_gpu, [8] * 4)
+    s = _r50_train_state(graph_gpu)
+    n0 = affine_warp.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        assert _train_run(s, batches)[2] == [0, 1, 1, 1]
+    assert affine_warp.launches - n0 == 2
+    assert sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+               and "warp_kernel" in e.name) == 4
+    last = max(r[1] for r in trace._records)
+    assert [r[0] for r in trace._records if r[1] == last] == [
+        "train.input", "train.replay", "train.step"]
+    monkeypatch.setattr(ts, "graph_blocker", lambda st: "blocked")
+    s = _r50_train_state(graph_gpu)
+    assert _train_run(s, batches)[2] == [0, 0, 0, 0]
+
+
+@pytest.mark.parametrize("change", ["remat", "bn_momentum"])
+def test_graphed_heatmap_step_follows_a_route_change(graph_gpu, monkeypatch,
+                                                     change):
+    """A plain setting of the model changed after the capture (the
+    backbone's remat, which launches the forward twice; a BatchNorm's
+    momentum, a float the capture froze) is caught: the next step runs
+    eagerly and the one after captures anew, and the run equals the
+    eager one making the same change, bit for bit."""
+    batches = _r50_batches(graph_gpu, [8] * 6)
+
+    def between(k, state):
+        if k == 3:
+            if change == "remat":
+                state.model.backbone.remat = True
+            else:
+                state.model.backbone.bn1.momentum = 0.5
+
+    g = _r50_train_state(graph_gpu)
+    got = _train_run(g, batches, between=between)
+    assert got[2] == [0, 1, 1, 0, 1, 1]
+    e = _r50_train_state(graph_gpu)
+    want = _train_run(e, batches, monkeypatch, graphed=False,
+                      between=between)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    _assert_train_states_equal(g, e)

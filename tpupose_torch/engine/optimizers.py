@@ -355,6 +355,7 @@ class GroupedOptimizer:
         self.accum_steps = max(int(grad_accum_steps or 1), 1)
         self.mini_step = 0
         self.acc = None
+        self.reloads = 0
 
     def zero_grad(self):
         for p in self.params:
@@ -370,6 +371,48 @@ class GroupedOptimizer:
     def lrs(self) -> dict:
         """Each group's lr for the next update."""
         return {k: float(s(self.count)) for k, s in self.schedules.items()}
+
+    def load_lrs(self):
+        """Fill each group's 0-dim lr tensor (`make_capturable`) with its
+        schedule's value at the update count: the value the next update
+        reads, a graph's replay included. A float lr is left to `step`."""
+        lrs = self.lrs()
+        for grp in self.inner.param_groups:
+            if torch.is_tensor(grp["lr"]):
+                grp["lr"].fill_(lrs[grp["label"]])
+
+    def make_capturable(self):
+        """Make the update one that a CUDA graph can capture and replay
+        (engine/step_graphs.py), for torch.optim's Adam, AdamW and SGD:
+        each group's lr a float32 0-dim tensor on its parameters' device,
+        and on the card the fused update, which reads it there (Adam and
+        AdamW also `capturable=True`: their step counts and bias
+        corrections on the card). Not the foreach update: SGD's takes its
+        lr as a host scalar, and Adam's with `capturable=True` divides by
+        its lists of 0-dim tensors one parameter at a time (340 more
+        launches an R50 step). From then on the caller fills the lr
+        tensors before each update (`load_lrs`). Idempotent;
+        `state_dict()` still writes the eager format."""
+        if self.inner is None:
+            return
+        adam = not isinstance(self.inner, torch.optim.SGD)
+        for grp in self.inner.param_groups:
+            dev = grp["params"][0].device
+            if not torch.is_tensor(grp["lr"]):
+                grp["lr"] = torch.tensor(float(grp["lr"]),
+                                         dtype=torch.float32, device=dev)
+            if dev.type != "cuda":
+                continue
+            grp["foreach"], grp["fused"] = False, True
+            if adam:
+                grp["capturable"] = True
+                for p in grp["params"]:
+                    st = self.inner.state.get(p)
+                    if st and st["step"].device != dev:
+                        st["step"] = st["step"].to(dev, torch.float32)
+        # a capture's eager warm-up runs the capturable update on purpose:
+        # torch's warning that this may be slow does not apply
+        self.inner._warned_capturable_if_run_uncaptured = True
 
     def _accumulate(self) -> bool:
         """Add this mini-step's gradients to the window's running mean
@@ -417,7 +460,9 @@ class GroupedOptimizer:
         if self.inner is not None:
             lrs = self.lrs()
             for grp in self.inner.param_groups:
-                grp["lr"] = lrs[grp["label"]]
+                # a tensor lr (make_capturable) is filled by load_lrs
+                if not torch.is_tensor(grp["lr"]):
+                    grp["lr"] = lrs[grp["label"]]
             self.inner.step()
         self.count += 1
         return norm
@@ -432,8 +477,11 @@ class GroupedOptimizer:
         if self.inner is not None:
             inner = self.inner.state_dict()
             ps = self._inner_params()
-            inner["state"] = {i: _map_state(st, ps[i], full_tensor)
+            inner["state"] = {i: _map_state(_eager_state(st), ps[i],
+                                            full_tensor)
                               for i, st in inner["state"].items()}
+            inner["param_groups"] = [_eager_group(g, self.inner.defaults)
+                                     for g in inner["param_groups"]]
         acc = self.acc
         if acc is not None:
             acc = [full_tensor(a, shard_of(p))
@@ -442,6 +490,10 @@ class GroupedOptimizer:
                 "mini_step": self.mini_step, "acc": acc}
 
     def load_state_dict(self, sd: dict):
+        """Load `state_dict()`'s format. The inner optimizer's state and
+        groups are new objects afterwards, in the eager format: `reloads`
+        counts the loads, so that graphs captured on the old ones are
+        dropped."""
         mini_step = int(sd.get("mini_step", 0))
         if mini_step >= self.accum_steps:
             raise ValueError(f"the state is at mini-step {mini_step} of its "
@@ -455,10 +507,32 @@ class GroupedOptimizer:
                               for i, st in inner["state"].items()}
             self.inner.load_state_dict(inner)
         self.mini_step = mini_step
+        self.reloads += 1
         acc = sd.get("acc")
         self.acc = None if acc is None else [
             local_part(a.to(p.device, p.dtype), shard_of(p)).clone()
             for a, p in zip(acc, self.params)]
+
+
+def _eager_state(st: dict) -> dict:
+    """A parameter's state with a step count on the card (capturable Adam)
+    as the eager update keeps it: on the host."""
+    step = st.get("step")
+    if torch.is_tensor(step) and step.device.type != "cpu":
+        return {**st, "step": step.cpu()}
+    return st
+
+
+def _eager_group(g: dict, defaults: dict) -> dict:
+    """A param group as the eager update keeps it: the lr a float, the
+    settings `make_capturable` changes at the constructor's values."""
+    g = dict(g)
+    if torch.is_tensor(g["lr"]):
+        g["lr"] = float(g["lr"])
+    for k in ("capturable", "fused", "foreach"):
+        if k in g:
+            g[k] = defaults[k]
+    return g
 
 
 def _map_state(st: dict, p, fn) -> dict:

@@ -36,6 +36,8 @@ import copy
 
 import torch
 
+from tpupose_torch._device import constant
+from tpupose_torch.engine.step_graphs import StepGraphs, graph_blocker
 from tpupose_torch.ops.affine import draw_affine_augment, random_affine_augment
 from tpupose_torch.ops.heatmap import gaussian_heatmaps
 from tpupose_torch.ops.mosaic import draw_mosaic, mosaic_augment_normalized
@@ -70,6 +72,13 @@ class TrainState:
         self.ema_decay = float(ema_decay)
         self.ema = ([p.detach().clone() for p in model.parameters()]
                     if self.ema_decay > 0 else None)
+        # the EMA's decay as a 0-dim device tensor that `load_schedules`
+        # fills, once `make_capturable` has run (else a float from the
+        # host's step count)
+        self._ema_d = None
+        # loads of a state (`load_state_dict`): graphs captured before one
+        # are dropped (engine/step_graphs.py)
+        self.reloads = 0
         self._eval_model = None
         # data parallelism (Trainer under torchrun): this process's data
         # rank of `dp_world` in the data group `dp_group` (None: the
@@ -115,13 +124,49 @@ class TrainState:
         tensor)."""
         grad_norm = self.optimizer.step()
         if self.ema is not None:
-            t = float(self.step)
-            d = min(self.ema_decay, (1.0 + t) / (10.0 + t))
             params = [p.detach() for p in self.model.parameters()]
-            torch._foreach_mul_(self.ema, d)
-            torch._foreach_add_(self.ema, params, alpha=1.0 - d)
+            d = self._ema_d
+            if d is None:
+                d = self._decay()
+                torch._foreach_mul_(self.ema, d)
+                torch._foreach_add_(self.ema, params, alpha=1.0 - d)
+            else:
+                torch._foreach_mul_(self.ema, d)
+                torch._foreach_add_(self.ema,
+                                    torch._foreach_mul(params, 1.0 - d))
         self.step += 1
         return grad_norm
+
+    def _decay(self) -> float:
+        t = float(self.step)
+        return min(self.ema_decay, (1.0 + t) / (10.0 + t))
+
+    def make_capturable(self):
+        """Make the update one that a CUDA graph can capture and replay
+        (engine/step_graphs.py): the optimizer's (GroupedOptimizer.
+        make_capturable) and the EMA's decay as a device tensor. From then
+        on the caller fills them before each update (`load_schedules`), as
+        StepGraphs does. Idempotent."""
+        self.optimizer.make_capturable()
+        if self.ema is not None and self._ema_d is None:
+            self._ema_d = torch.zeros((), dtype=torch.float32,
+                                      device=self.ema[0].device)
+
+    def load_schedules(self):
+        """Fill the device scalars of a capturable state (each group's lr,
+        the EMA's decay) for the update the host's counters stand at: the
+        values that the next update reads, eager, captured or replayed.
+        Nothing on a state that is not capturable."""
+        self.optimizer.load_lrs()
+        if self._ema_d is not None:
+            self._ema_d.fill_(self._decay())
+
+    def count_replayed_update(self):
+        """Advance the host's counters past an update that a graph's
+        replay made (GroupedOptimizer.step's count, apply_gradients'
+        step)."""
+        self.optimizer.count += 1
+        self.step += 1
 
     def _sharded(self) -> bool:
         return any(shard_of(p) is not None for p in self.model.parameters())
@@ -160,6 +205,7 @@ class TrainState:
         """Load a one-process state (each sharded tensor takes this
         rank's block)."""
         self.step = int(sd["step"])
+        self.reloads += 1
         load_full_state_dict(self.model, sd["model"])
         self.optimizer.load_state_dict(sd["optimizer"])
         if self.ema is not None:
@@ -203,19 +249,20 @@ def _augment(images, joints, vis, draws, use_affine: bool, grid_hw,
              udp: bool, jitter: float):
     """The top-down steps' device augmentation: the affine warp (K7 on the
     card; joints move on the target grid `grid_hw`, heatmap or bin), then
-    color jitter + normalize (or the plain normalize), cast to bf16 as
-    the JAX step casts. Returns (images, joints, visibility)."""
+    color jitter (where `jitter` > 0) and normalize_images' normalize,
+    its statistics kept on the device (a graph capture refuses their
+    copy from a list), cast to bf16 as the JAX step casts. Returns
+    (images, joints, visibility)."""
     if use_affine:
         mult, rot = draws["affine"]
         images, joints, vis = random_affine_augment(
             images, joints, vis, mult, rot, tuple(grid_hw), udp=udp)
+    x = images.to(torch.float32) * (1.0 / 255.0)
     if jitter > 0:
-        x = color_jitter(images.to(torch.float32) * (1.0 / 255.0),
-                         draws["jitter"])
-        m = torch.tensor(IMAGENET_MEAN, device=x.device)
-        s = torch.tensor(IMAGENET_STD, device=x.device)
-        return ((x - m) / s).to(torch.bfloat16), joints, vis
-    return normalize_images(images), joints, vis
+        x = color_jitter(x, draws["jitter"])
+    m = constant(IMAGENET_MEAN, x.device)
+    s = constant(IMAGENET_STD, x.device)
+    return ((x - m) / s).to(torch.bfloat16), joints, vis
 
 
 def _backward_update(state: TrainState, loss) -> dict:
@@ -254,7 +301,13 @@ def make_heatmap_train_step(loss_fn, color_jitter_strength: float = 0.0,
     (1 - w) task + w joints_mse(student, teacher, target_weight) with w =
     distill_weight; the metrics gain "task_loss" and "kd_loss". `count`
     normalises the distillation loss as loss_fn's own (losses/
-    normalize.py; this process's batch by default)."""
+    normalize.py; this process's batch by default).
+
+    On the card, where `graph_blocker(state)` finds nothing in the way
+    (one process, the whole model, no accumulation, Adam, AdamW or SGD),
+    the step runs from a CUDA graph from the second call of an input
+    signature on (engine/step_graphs.py; `step.graphs`): the same body,
+    captured."""
     from tpupose_torch.losses.heatmap import joints_mse_loss
     from tpupose_torch.losses.normalize import local_count
 
@@ -264,12 +317,15 @@ def make_heatmap_train_step(loss_fn, color_jitter_strength: float = 0.0,
         raise ValueError("device affine augmentation needs heatmap_size")
     draws_for = _make_draws_for(jitter_seed, use_affine, affine_rotation,
                                 affine_scale, color_jitter_strength)
+    graphs = StepGraphs()
 
     def train_step(state: TrainState, batch: dict, draws: dict = None):
         if use_affine and "target" in batch:
             raise ValueError("device affine augmentation needs raw joints, "
                              "not precomputed targets")
         with trace.root("train.step"):
+            if graph_blocker(state) is None:
+                return graphs(state, batch, draws, draws_for, _heatmap_step)
             return _heatmap_step(state, batch, draws)
 
     def _heatmap_step(state, batch, draws):
@@ -306,6 +362,7 @@ def make_heatmap_train_step(loss_fn, color_jitter_strength: float = 0.0,
         return metrics
 
     train_step.draws_for = draws_for
+    train_step.graphs = graphs
     return train_step
 
 

@@ -24,6 +24,8 @@ import math
 import numpy as np
 import torch
 
+from tpupose_torch._device import constant
+
 
 def get_affine_matrix(center, scale, rotation_deg, out_size,
                       udp: bool = False) -> torch.Tensor:
@@ -160,8 +162,8 @@ def augment_matrices(mult, rot, image_size, udp: bool = False):
     cos, sin = torch.cos(theta), torch.sin(theta)
     A = mult.float()[:, None, None] * torch.stack(
         [torch.stack([cos, -sin], -1), torch.stack([sin, cos], -1)], -2)
-    c = torch.tensor([(W - 1) * 0.5, (H - 1) * 0.5] if udp
-                     else [W * 0.5, H * 0.5], device=A.device)
+    c = constant(((W - 1) * 0.5, (H - 1) * 0.5) if udp
+                 else (W * 0.5, H * 0.5), A.device)
     t = c[None, :] - torch.einsum("bij,j->bi", A, c)
     return torch.cat([A, t[..., None]], dim=-1)
 
@@ -189,8 +191,8 @@ def random_affine_augment(images, joints, visibility, mult, rot,
     inv_m = 1.0 / mult.float()
     Ainv = inv_m[:, None, None] * torch.stack(
         [torch.stack([cos, sin], -1), torch.stack([-sin, cos], -1)], -2)
-    c_hm = torch.tensor([(Wh - 1) * 0.5, (Hh - 1) * 0.5] if udp
-                        else [Wh * 0.5, Hh * 0.5], device=joints.device)
+    c_hm = constant(((Wh - 1) * 0.5, (Hh - 1) * 0.5) if udp
+                    else (Wh * 0.5, Hh * 0.5), joints.device)
     jnew = torch.einsum("bij,bkj->bki", Ainv, joints.float() - c_hm) + c_hm
     inside = ((jnew[..., 0] >= 0) & (jnew[..., 0] < Wh)
               & (jnew[..., 1] >= 0) & (jnew[..., 1] < Hh))

@@ -11,7 +11,8 @@ and on the device's while a profiler runs.
 A span's host part is always on: `time.perf_counter_ns` at enter and at
 exit, kept with the span's root, its parent and whether its device part
 ran, in a bounded in-memory buffer (about a microsecond a span). Its
-device part runs only while torch.profiler records or after `enable()`:
+device part runs only while torch.profiler records or after `enable()`,
+and never while a CUDA graph is captured (engine/step_graphs.py):
 a `record_function("tpupose.<name>")` range, which puts the span on the
 profiler's clock beside the kernels, and, where CUDA is in use, a pair of
 timing events on the current stream, whose elapsed time is the layer's
@@ -23,8 +24,8 @@ range the caller wraps around it. Spans nest per thread: a server runs
 the predictor on a thread of its own. Under torch.compile and
 torch.export every call is a no-op, so a traced program holds no span.
 
-This module imports nothing beyond torch's core (torch._dynamo's import
-alone takes seconds).
+This module imports nothing beyond torch's core and the port's
+`_device` (torch._dynamo's import alone takes seconds).
 """
 
 from __future__ import annotations
@@ -36,6 +37,8 @@ from collections import deque
 
 import torch
 from torch.autograd.profiler import record_function
+
+from tpupose_torch._device import capturing
 
 # records kept: a 20 s window of requests or steps holds ~10^4
 CAPACITY = 1 << 16
@@ -90,7 +93,8 @@ class span:
         else:
             self._rid = stack[-1]._rid if stack else None
         stack.append(self)
-        self._dev = (self._device_part() if _enabled or _profiling()
+        self._dev = (self._device_part()
+                     if (_enabled or _profiling()) and not capturing()
                      else None)
         self._t0 = _clock()
         return self
